@@ -1,0 +1,122 @@
+"""The weight bridge: the JAX package's parameter tree as the port's tensors,
+and a torch-native seeded init of the same tree.
+
+Layout. The port keeps the JAX tree as it is: nested dicts, per-layer
+weights stacked along a leading (L, ...) axis, every dense `kernel` in
+(in, out) form. The decoder applies `x @ kernel`, which needs no transpose,
+so this bridge transposes nothing; it only moves each leaf to the requested
+dtype and device. `visual_head` stays float32 whatever the dtype, as in the
+JAX package (an fp32 island of the TVG head).
+
+The seeded init draws from `torch.Generator`s on the target device with the
+JAX init's shapes and distributions (qwen2.init_params, projector.init_params,
+videochat_flash.init_params). A CUDA generator builds the 7B on the card
+directly in bf16: no fp32 transients and no host-side normals. The numbers
+differ from the JAX init's; tests that compare the two packages bridge the
+JAX tree instead.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from blim_tpu_torch.core.config import ModelConfig, Qwen2Config
+from blim_tpu_torch.core.device import DeviceLike, resolve_device
+
+Params = Dict[str, Any]
+
+_FP32_SUBTREES = ("visual_head",)
+
+
+def params_from_numpy(tree: Params, dtype: torch.dtype = torch.float32,
+                      device: DeviceLike = "cuda") -> Params:
+    """Numpy (or array-like) parameter tree -> the same tree of tensors.
+    `None` leaves (a tied lm_head) stay None."""
+    dev = resolve_device(device)
+
+    def conv(node, leaf_dtype):
+        if isinstance(node, dict):
+            return {k: conv(v, torch.float32 if k in _FP32_SUBTREES else leaf_dtype)
+                    for k, v in node.items()}
+        if node is None:
+            return None
+        arr = np.array(node, np.float32)  # a writable copy of possibly read-only input
+        return torch.from_numpy(arr).to(device=dev, dtype=leaf_dtype)
+
+    return conv(tree, dtype)
+
+
+def params_to_numpy(params: Params) -> Params:
+    """Tensor tree -> float32 numpy tree (the inverse bridge)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if params is None:
+        return None
+    return params.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype).mul_(scale)
+
+
+def init_qwen2(config: Qwen2Config, gen: torch.Generator, dtype, device) -> Params:
+    """Stacked-layer Qwen2 tree: N(0, 0.02) dense weights, zero biases, unit
+    norm scales (qwen2.init_params)."""
+    c = config
+    L, D, I = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+    H, K, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+
+    def dense(*shape):
+        return _normal(gen, shape, 0.02, dtype, device)
+
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    params: Params = {
+        "embed_tokens": {"embedding": dense(c.vocab_size, D)},
+        "layers": {
+            "input_layernorm": {"scale": full(1.0, L, D)},
+            "post_attention_layernorm": {"scale": full(1.0, L, D)},
+            "q_proj": {"kernel": dense(L, D, H * hd), "bias": full(0.0, L, H * hd)},
+            "k_proj": {"kernel": dense(L, D, K * hd), "bias": full(0.0, L, K * hd)},
+            "v_proj": {"kernel": dense(L, D, K * hd), "bias": full(0.0, L, K * hd)},
+            "o_proj": {"kernel": dense(L, H * hd, D)},
+            "gate_proj": {"kernel": dense(L, D, I)},
+            "up_proj": {"kernel": dense(L, D, I)},
+            "down_proj": {"kernel": dense(L, I, D)},
+        },
+        "norm": {"scale": full(1.0, D)},
+    }
+    params["lm_head"] = {"kernel": None if c.tie_word_embeddings else dense(D, c.vocab_size)}
+    return params
+
+
+def init_projector(mm_hidden: int, hidden: int, gen: torch.Generator, dtype, device) -> Params:
+    """Projector MLPs: Glorot-normal kernels drawn in fp32, zero biases
+    (projector.init_params)."""
+
+    def lin(din, dout):
+        scale = (2.0 / (din + dout)) ** 0.5
+        return {"kernel": _normal(gen, (din, dout), scale, torch.float32, device).to(dtype),
+                "bias": torch.zeros(dout, dtype=dtype, device=device)}
+
+    return {
+        "mlp": {"fc1": lin(mm_hidden, hidden), "fc2": lin(hidden, hidden)},
+        "tvg_mlp": {"fc1": lin(mm_hidden, hidden), "fc2": lin(hidden, hidden)},
+    }
+
+
+def init_params(config: ModelConfig, seed: int = 0, dtype: torch.dtype = torch.float32,
+                device: DeviceLike = "cuda") -> Params:
+    """Random VideoChat-Flash tree {llm, projector, visual_head} on `device`
+    (videochat_flash.init_params)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    llm = init_qwen2(config.llm, gen, dtype, dev)
+    proj = init_projector(config.mm_hidden_size, config.llm.hidden_size, gen, dtype, dev)
+    vh = _normal(gen, (config.llm.hidden_size, config.mm_hidden_size), 0.02, torch.float32, dev)
+    return {"llm": llm, "projector": proj, "visual_head": {"kernel": vh}}

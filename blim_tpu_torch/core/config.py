@@ -1,0 +1,120 @@
+"""Model configuration dataclasses (copy of blim_tpu/core/config.py).
+
+Defaults are the VideoChat-Flash-Qwen2-7B values. The HF-config readers stay
+in the JAX package until the port loads checkpoints.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2Config:
+    """Decoder-only LLM config (Qwen2 family)."""
+
+    vocab_size: int = 152064
+    hidden_size: int = 3584
+    intermediate_size: int = 18944
+    num_hidden_layers: int = 28
+    num_attention_heads: int = 28
+    num_key_value_heads: int = 4
+    head_dim: int = 128
+    rope_theta: float = 1_000_000.0
+    rms_norm_eps: float = 1e-6
+    max_position_embeddings: int = 32768
+    tie_word_embeddings: bool = False
+    # Sliding-window attention: dormant in every BLiM config.
+    use_sliding_window: bool = False
+    sliding_window: Optional[int] = 4096
+    max_window_layers: int = 28
+
+    @property
+    def num_query_groups(self) -> int:
+        return self.num_attention_heads // self.num_key_value_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """UMT ViT-L vision tower config (carried for config parity; the port's
+    zero-shot path consumes cached features and runs no ViT)."""
+
+    image_size: int = 448
+    patch_size: int = 16
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_frames: int = 4
+    tubelet_size: int = 1
+    return_idx: int = -2
+    ckpt_num_frame: int = 4
+    layer_norm_eps: float = 1e-6
+    final_layer_norm_eps: float = 1e-12
+    qkv_bias: bool = True
+    init_values: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Full VideoChat-Flash multimodal model config."""
+
+    llm: Qwen2Config = dataclasses.field(default_factory=Qwen2Config)
+    vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
+
+    mm_hidden_size: int = 1024
+    mm_local_num_frames: int = 4
+    num_clips: int = 4
+    tokens_per_frame: int = 16
+    tokenizer_model_max_length: Optional[int] = None
+    tokenizer_padding_side: str = "left"
+    mm_projector_type: str = "tome16_mlp_hd64"
+    vision_encode_type: str = "video_image"
+    mm_patch_merge_type: str = "spatial_nopad"
+    mm_newline_position: str = "nothing"
+    mm_llm_compress: bool = False
+    llm_compress_type: str = "attention"
+    llm_compress_layer_list: Tuple[int, ...] = ()
+    llm_image_token_ratio_list: Tuple[float, ...] = (1.0,)
+
+    @property
+    def tokens_per_clip(self) -> int:
+        return self.tokens_per_frame * self.mm_local_num_frames
+
+    @property
+    def video_tokens_vtg(self) -> int:
+        """Spliced video block length in VTG mode (all clip tokens, flattened)."""
+        return self.num_clips * self.tokens_per_clip
+
+
+def tiny_model_config(
+    vocab_size: int = 512,
+    hidden_size: int = 64,
+    num_hidden_layers: int = 2,
+    num_attention_heads: int = 4,
+    num_key_value_heads: int = 2,
+    intermediate_size: int = 128,
+    mm_hidden_size: int = 32,
+    num_clips: int = 4,
+    image_size: int = 64,
+) -> ModelConfig:
+    """A tiny config for tests: 2-layer LLM, 2-block ViT."""
+    llm = Qwen2Config(
+        vocab_size=vocab_size,
+        hidden_size=hidden_size,
+        intermediate_size=intermediate_size,
+        num_hidden_layers=num_hidden_layers,
+        num_attention_heads=num_attention_heads,
+        num_key_value_heads=num_key_value_heads,
+        head_dim=hidden_size // num_attention_heads,
+        max_position_embeddings=2048,
+    )
+    vision = VisionConfig(
+        image_size=image_size,
+        hidden_size=mm_hidden_size,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        return_idx=-1,
+    )
+    return ModelConfig(llm=llm, vision=vision, mm_hidden_size=mm_hidden_size, num_clips=num_clips)

@@ -1,0 +1,200 @@
+"""VTG prompt construction and the static right-padded VTG layout (copy of
+the VTG half of blim_tpu/data/prompts.py).
+
+  VTG (score P(text|video)):
+      [pre][VIDEO x Nv][post][caption ... <|im_end|> \\n][PAD...]
+  `pre` (system + user header) and `post` ("\\n" + instruction + turn ends +
+  assistant header) are constants per dataset, so the video block and the
+  label window live at fixed offsets; only the caption varies.
+
+The TVG layout joins the port with the fine-tuned flow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from blim_tpu_torch.core.constants import DEFAULT_IMAGE_TOKEN, IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from blim_tpu_torch.data.conversation import conv_templates
+
+# Dataset-specific VTG instructions.
+VTG_INSTRUCTIONS = {
+    "DiDeMo": "Describe this video in detail.",
+    "ActivityNet": "Describe this video in detail.",
+    "LSMDC": "Describe this video in one sentence.",
+    "MSRVTT": "Describe this video briefly.",
+}
+
+
+def tokenizer_image_token(prompt: str, tokenizer,
+                          image_token_index: int = IMAGE_TOKEN_INDEX) -> List[int]:
+    """Tokenize a prompt containing ``<image>`` placeholders: each chunk is
+    tokenized on its own and the chunks are joined with `image_token_index`,
+    keeping a BOS token if the tokenizer emits one."""
+    chunks = [tokenizer(chunk).input_ids for chunk in prompt.split(DEFAULT_IMAGE_TOKEN)]
+    input_ids: List[int] = []
+    offset = 0
+    bos = getattr(tokenizer, "bos_token_id", None)
+    if chunks and chunks[0] and bos is not None and chunks[0][0] == bos:
+        offset = 1
+        input_ids.append(chunks[0][0])
+    for i, chunk in enumerate(chunks):
+        if i:
+            input_ids.extend([image_token_index] * (offset + 1))
+        input_ids.extend(chunk[offset:])
+    return input_ids
+
+
+def vtg_prompt_strings(caption: str, dataset: str) -> Tuple[str, str]:
+    """(prompt-only, full) strings for the VTG direction."""
+    instruction = VTG_INSTRUCTIONS[dataset]
+    conv = conv_templates["qwen_2"].copy()
+    conv.append_message(conv.roles[0], f"{DEFAULT_IMAGE_TOKEN}\n{instruction}")
+    conv.append_message(conv.roles[1], None)
+    prompt_only = conv.get_prompt()
+
+    conv = conv_templates["qwen_2"].copy()
+    conv.append_message(conv.roles[0], f"{DEFAULT_IMAGE_TOKEN}\n{instruction}")
+    conv.append_message(conv.roles[1], caption)
+    return prompt_only, conv.get_prompt()
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class VTGLayout:
+    """Static right-padded VTG layout for one dataset.
+
+    Sequence:  [pre | video x num_video_tokens | post | caption-region | pad]
+    where caption-region holds up to `max_caption_tokens` caption ids followed
+    by the two terminator tokens (``<|im_end|>``, ``\\n``).
+    """
+
+    pre_ids: Tuple[int, ...]
+    post_ids: Tuple[int, ...]
+    terminator_ids: Tuple[int, ...]
+    num_video_tokens: int
+    max_caption_tokens: int
+    seq_len: int
+    pad_id: int
+
+    @property
+    def video_start(self) -> int:
+        return len(self.pre_ids)
+
+    @property
+    def caption_start(self) -> int:
+        return len(self.pre_ids) + self.num_video_tokens + len(self.post_ids)
+
+    @property
+    def label_window(self) -> Tuple[int, int]:
+        """(hidden_start, length): hidden[hidden_start + i] predicts the token
+        at caption_start + i, for i in [0, max_caption_tokens + n_term)."""
+        return self.caption_start - 1, self.max_caption_tokens + len(self.terminator_ids)
+
+    @property
+    def prefix_len(self) -> int:
+        """Tokens before the scoring suffix (everything up to, excluding, the
+        last post token, whose hidden state predicts the first caption token)."""
+        return self.caption_start - 1
+
+    @property
+    def suffix_width(self) -> int:
+        """Suffix = last post token + caption region."""
+        return 1 + self.max_caption_tokens + len(self.terminator_ids)
+
+    def prefix_token_ids(self) -> np.ndarray:
+        """(prefix_len,) layout tokens with zeros in the video slot (embeds
+        are spliced over them)."""
+        ids = np.zeros((self.prefix_len,), np.int32)
+        ids[: len(self.pre_ids)] = self.pre_ids
+        p = len(self.pre_ids) + self.num_video_tokens
+        ids[p:] = self.post_ids[:-1]
+        return ids
+
+    def prior_prefix(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, position_ids) of the text-only CPN-prior prefix: pre + post
+        tokens at their original (video-gapped) layout positions."""
+        ids = np.asarray(list(self.pre_ids) + list(self.post_ids[:-1]), np.int32)
+        pos = np.concatenate([
+            np.arange(len(self.pre_ids)),
+            np.arange(len(self.pre_ids) + self.num_video_tokens, self.caption_start - 1),
+        ]).astype(np.int32)
+        return ids, pos
+
+    def caption_token_ids(self, caption: str, tokenizer, dataset: str) -> List[int]:
+        """Caption tokens extracted in context from the full rendered prompt,
+        so BPE merges at the assistant-header boundary match whole-string
+        tokenization."""
+        if not caption:
+            raise ValueError("empty caption cannot be scored")
+        prompt_only, full = vtg_prompt_strings(caption, dataset)
+        p = tokenizer_image_token(prompt_only, tokenizer)
+        f = tokenizer_image_token(full, tokenizer)
+        assert f[: len(p)] == p, "prompt is not a token prefix of the full sequence"
+        tail = f[len(p):]
+        n_term = len(self.terminator_ids)
+        assert tuple(tail[len(tail) - n_term:]) == self.terminator_ids
+        return tail[: len(tail) - n_term]
+
+    def encode_caption(self, caption: str, tokenizer, dataset: str) -> Dict[str, np.ndarray]:
+        return self.encode(self.caption_token_ids(caption, tokenizer, dataset))
+
+    def encode(self, caption_ids: Sequence[int]) -> Dict[str, np.ndarray]:
+        """Fixed-shape arrays for one caption (video embeds spliced later)."""
+        cap = list(caption_ids)[: self.max_caption_tokens]
+        ids = np.full((self.seq_len,), self.pad_id, np.int32)
+        labels = np.full((self.seq_len,), IGNORE_INDEX, np.int32)
+        attn = np.zeros((self.seq_len,), np.int32)
+        is_video = np.zeros((self.seq_len,), np.int32)
+
+        p = len(self.pre_ids)
+        ids[:p] = self.pre_ids
+        is_video[p : p + self.num_video_tokens] = 1
+        ids[p : p + self.num_video_tokens] = 0
+        p += self.num_video_tokens
+        ids[p : p + len(self.post_ids)] = self.post_ids
+        p += len(self.post_ids)
+        assert p == self.caption_start
+        tail = cap + list(self.terminator_ids)
+        ids[p : p + len(tail)] = tail
+        labels[p : p + len(tail)] = tail
+        real_len = p + len(tail)
+        attn[:real_len] = 1
+        cpn = attn * (1 - is_video)  # prior P(t): video block masked out
+        return {
+            "input_ids": ids,
+            "labels": labels,
+            "attention_mask": attn,
+            "cpn_mask": cpn,
+            "is_video": is_video,
+            "real_len": np.int32(real_len),
+        }
+
+
+def make_vtg_layout(tokenizer, dataset: str, num_video_tokens: int,
+                    max_caption_tokens: int = 96, align: int = 64) -> VTGLayout:
+    """Derive the static VTG layout for a dataset from its prompt template."""
+    prompt_only, _ = vtg_prompt_strings("", dataset)
+    prompt_ids = tokenizer_image_token(prompt_only, tokenizer)
+    img_pos = prompt_ids.index(IMAGE_TOKEN_INDEX)
+    pre = tuple(prompt_ids[:img_pos])
+    post = tuple(prompt_ids[img_pos + 1:])
+    # `<|im_end|>` is a special token, so the "\n" after it tokenizes exactly
+    # as it does in the full rendered prompt
+    term = tuple(tokenizer("<|im_end|>\n").input_ids)
+    body = len(pre) + num_video_tokens + len(post) + max_caption_tokens + len(term)
+    return VTGLayout(
+        pre_ids=pre,
+        post_ids=post,
+        terminator_ids=term,
+        num_video_tokens=num_video_tokens,
+        max_caption_tokens=max_caption_tokens,
+        seq_len=_round_up(body, align),
+        pad_id=tokenizer.pad_token_id,
+    )

@@ -1,0 +1,93 @@
+"""Zero-shot evaluation: VTG top-k rerank with CPN priors and
+score-matrix assembly (port of the has_tvg=False, shared-prefix, packed
+branch of blim_tpu/engine/evaluation.py).
+
+  v2t candidate likelihood (VTG): P(candidate caption | query video)
+  v2t candidate prior      (VTG): P(candidate caption), the CPN prior
+  t2v query     likelihood (VTG): P(query caption | candidate video)
+
+Items are (video, caption) rows and the matrices are (N x N) over items;
+cells outside the top-k keep the fill value -100. The fine-tuned (TVG)
+directions join the port with the fine-tuned flow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+
+from blim_tpu_torch.engine.rerank import CaptionBank, RerankEngine, topk_pairs, unique_pairs
+
+
+@dataclasses.dataclass
+class EvalInputs:
+    captions: Sequence[str]            # per item
+    item_video_idx: np.ndarray         # (N,) item -> unique-video index
+    features: np.ndarray               # (V, clips, tokens_per_clip, mm)
+    t2v_iv2: np.ndarray                # (N, N) InternVideo2 text->video scores
+    v2t_iv2: np.ndarray                # (N, N) InternVideo2 video->text scores
+
+
+def evaluation(
+    engine: RerankEngine,
+    inputs: EvalInputs,
+    tokenizer,
+    dataset: str,
+    topk: int = 16,
+    cpn: bool = False,
+    has_tvg: bool = False,
+    fill: float = -100.0,
+    verbose: bool = True,
+    timings: Dict[str, float] | None = None,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """Returns (t2v_dict, v2t_dict) of (N, N) score matrices."""
+    if has_tvg:
+        raise NotImplementedError("the TVG directions are not ported yet (zero-shot only)")
+    t_start = time.time()
+    n = len(inputs.captions)
+    item_vid = np.asarray(inputs.item_video_idx)
+
+    def mark(name: str) -> None:
+        if timings is not None:
+            timings[name] = time.time() - t_start
+
+    bank = CaptionBank.build_vtg(inputs.captions, tokenizer, dataset, engine.vtg_layout)
+    banks = engine.upload(bank, inputs.features)
+    mark("upload")
+    prior = engine.compute_vtg_priors_packed(banks) if cpn else None
+    mark("prior_done")
+
+    v_rows, v_cols = topk_pairs(inputs.v2t_iv2, topk)   # rows: videos, cols: captions
+    t_rows, t_cols = topk_pairs(inputs.t2v_iv2, topk)   # rows: captions, cols: videos
+    n1 = len(v_rows)
+    # cross-grid dedup: v2t_candidate[i, j] and t2v_query[j, i] are the same
+    # number P(caption j | video i); score the union once
+    all_caps = np.concatenate([v_cols, t_rows])
+    all_vids = np.concatenate([item_vid[v_rows], item_vid[t_cols]])
+    u_cap, u_vid, inv = unique_pairs(all_caps, all_vids)
+    if verbose:
+        print(f"VTG union: {len(u_cap)} unique pairs of {len(all_caps)} grid cells (topk={topk})")
+    scores = engine.score_pairs_vtg_packed(banks, u_cap, u_vid)
+    mark("vtg_done")
+
+    t2v_dict: Dict[str, np.ndarray] = {}
+    v2t_dict: Dict[str, np.ndarray] = {}
+    cand = np.full((n, n), fill, np.float32)
+    cand[v_rows, v_cols] = scores[inv[:n1]]
+    query = np.full((n, n), fill, np.float32)
+    query[t_rows, t_cols] = scores[inv[n1:]]
+    v2t_dict["candidate_likelihood"] = cand
+    t2v_dict["query_likelihood"] = query
+    if cpn:
+        pmat = np.full((n, n), fill, np.float32)
+        pmat[v_rows, v_cols] = prior[v_cols]
+        v2t_dict["candidate_prior"] = pmat
+    v2t_dict["internvideo2"] = np.asarray(inputs.v2t_iv2, np.float32)
+    t2v_dict["internvideo2"] = np.asarray(inputs.t2v_iv2, np.float32)
+    mark("total")
+    if verbose:
+        print(f"Evaluation time {time.time() - t_start:.1f}s")
+    return t2v_dict, v2t_dict

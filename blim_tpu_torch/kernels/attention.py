@@ -1,0 +1,87 @@
+"""Attention dispatch: the hand-written flash kernel on CUDA tensors, the
+plain PyTorch version on CPU tensors (port of blim_tpu/kernels/attention.py).
+
+Semantics (flash-attn varlen output semantics, as in the JAX package): GQA
+without repeating K/V; masked keys get the finite logit -1e30; masked query
+positions emit a zero attention output. The CPN prior depends on it:
+CPN-masked tokens neither see nor are seen but still ride the residual
+stream.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+NEG_INF = -1e30  # finite: fully-masked rows softmax to finite garbage that
+                 # the query mask then zeroes, instead of NaN
+
+
+def reference_attention(
+    q: torch.Tensor,                       # (B, S, Hq, D)
+    k: torch.Tensor,                       # (B, S, Hkv, D)
+    v: torch.Tensor,                       # (B, S, Hkv, D)
+    key_mask: Optional[torch.Tensor] = None,     # (B, S) 1 = visible as key
+    query_mask: Optional[torch.Tensor] = None,   # (B, S) 1 = emit output
+    causal: bool = True,
+    scale: Optional[float] = None,
+    window: Union[int, torch.Tensor, None] = None,  # query i sees key j iff i-j <= window
+) -> torch.Tensor:
+    """The plain version (blim_tpu attention._xla_attention): fp32 scores and
+    softmax, probabilities cast to v's dtype before the P.V product."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    assert hq % hkv == 0, (hq, hkv)
+    groups = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+
+    qg = (q.float() * scale).reshape(b, s, hkv, groups, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+
+    idx = torch.arange(s, device=q.device)
+    mask = None
+    if causal:
+        mask = (idx[:, None] >= idx[None, :])[None, None, None]
+    if window is not None:
+        wmask = ((idx[:, None] - idx[None, :]) <= window)[None, None, None]
+        mask = wmask if mask is None else mask & wmask
+    if key_mask is not None:
+        km = key_mask.bool()[:, None, None, None, :]
+        mask = km if mask is None else mask & km
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, s, hq, d)
+    if query_mask is not None:
+        out = out * query_mask[:, :, None, None].to(out.dtype)
+    return out
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    key_mask: Optional[torch.Tensor] = None,
+    query_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    window: Union[int, torch.Tensor, None] = None,
+) -> torch.Tensor:
+    """GQA attention, q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (B,S,Hq,D).
+
+    A CUDA tensor always goes to the hand-written kernel, whatever its size
+    (the JAX wrapper's small-problem gate does not apply). The kernel has no
+    sliding window (dormant in BLiM configs), so `window` on a CUDA tensor
+    raises; on a CPU tensor it runs the plain version."""
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
+    if window is not None:
+        raise NotImplementedError("sliding-window attention has no CUDA kernel yet")
+    from blim_tpu_torch.kernels.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, key_mask=key_mask, query_mask=query_mask,
+                           causal=causal, scale=scale)

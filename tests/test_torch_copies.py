@@ -1,0 +1,196 @@
+"""The port keeps its own copies of the JAX package's JAX-free helpers
+(configs, tokenizer, prompt layouts, pack schedulers, recall and fusion).
+Each copy is pinned equal to its original here."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from blim_tpu.core import config as jconfig
+from blim_tpu.core import constants as jconst
+from blim_tpu.data import conversation as jconv
+from blim_tpu.data import prompts as jprompts
+from blim_tpu.data.tokenization import ByteFallbackTokenizer as JTokenizer
+from blim_tpu.engine import rerank as jrerank
+from blim_tpu.scoring import fusion as jfusion
+from blim_tpu.scoring import recall as jrecall
+
+from blim_tpu_torch.core import config as tconfig
+from blim_tpu_torch.core import constants as tconst
+from blim_tpu_torch.data import conversation as tconv
+from blim_tpu_torch.data import prompts as tprompts
+from blim_tpu_torch.data.tokenization import ByteFallbackTokenizer as TTokenizer
+from blim_tpu_torch.engine import rerank as trerank
+from blim_tpu_torch.scoring import fusion as tfusion
+from blim_tpu_torch.scoring import recall as trecall
+
+CAPTIONS = ["a cat sits on a mat", "children play soccer in the park",
+            "a chef cooks pasta", "x", "waves crash against the rocks again and again"]
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.ModelConfig(),
+    lambda m: m.tiny_model_config(),
+    lambda m: m.tiny_model_config(vocab_size=152064, num_clips=4),
+], ids=["7b", "tiny", "tiny-152k"])
+def test_config_copies_match(make):
+    j, t = make(jconfig), make(tconfig)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.video_tokens_vtg == j.video_tokens_vtg
+    assert t.tokens_per_clip == j.tokens_per_clip
+    assert t.llm.num_query_groups == j.llm.num_query_groups
+
+
+def test_constants_match():
+    for name in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN", "IMAGE_TOKEN_ID",
+                 "IM_START_TOKEN_ID", "QWEN2_PAD_TOKEN_ID"):
+        assert getattr(tconst, name) == getattr(jconst, name), name
+
+
+@pytest.mark.parametrize("text", [
+    "plain ascii", "<|im_start|>user\nhi<|im_end|>\n", "café ☃ <|endoftext|>", "",
+])
+def test_tokenizer_copy_matches(text):
+    j, t = JTokenizer(), TTokenizer()
+    assert t(text).input_ids == j(text).input_ids
+    ids = j(text).input_ids
+    for skip in (False, True):
+        assert t.decode(ids, skip_special_tokens=skip) == j.decode(ids, skip_special_tokens=skip)
+    assert (t.pad_token_id, t.eos_token_id, t.bos_token_id) == (
+        j.pad_token_id, j.eos_token_id, j.bos_token_id)
+
+
+def test_conversation_copy_matches():
+    for msgs in ([("u", "hello"), ("a", None)], [("u", "<image>\nq"), ("a", "answer")], []):
+        j = jconv.conv_templates["qwen_2"].copy()
+        t = tconv.conv_templates["qwen_2"].copy()
+        for role, m in msgs:
+            j.append_message(j.roles[0] if role == "u" else j.roles[1], m)
+            t.append_message(t.roles[0] if role == "u" else t.roles[1], m)
+        assert t.get_prompt() == j.get_prompt()
+
+
+@pytest.mark.parametrize("dataset", sorted(jprompts.VTG_INSTRUCTIONS))
+def test_vtg_layout_copy_matches(dataset):
+    jt, tt = JTokenizer(), TTokenizer()
+    j = jprompts.make_vtg_layout(jt, dataset, 256, max_caption_tokens=96)
+    t = tprompts.make_vtg_layout(tt, dataset, 256, max_caption_tokens=96)
+    for f in ("pre_ids", "post_ids", "terminator_ids", "num_video_tokens",
+              "max_caption_tokens", "seq_len", "pad_id", "video_start", "caption_start",
+              "label_window", "prefix_len", "suffix_width"):
+        assert getattr(t, f) == getattr(j, f), f
+    np.testing.assert_array_equal(t.prefix_token_ids(), j.prefix_token_ids())
+    for a, b in zip(t.prior_prefix(), j.prior_prefix()):
+        np.testing.assert_array_equal(a, b)
+    for cap in CAPTIONS:
+        te, je = t.encode_caption(cap, tt, dataset), j.encode_caption(cap, jt, dataset)
+        assert te.keys() == je.keys()
+        for key in je:
+            np.testing.assert_array_equal(te[key], je[key], err_msg=key)
+    prompt = tprompts.vtg_prompt_strings("a caption", dataset)
+    assert prompt == jprompts.vtg_prompt_strings("a caption", dataset)
+    assert (tprompts.tokenizer_image_token(prompt[1], tt)
+            == jprompts.tokenizer_image_token(prompt[1], jt))
+
+
+def test_empty_caption_raises_like_the_original():
+    t = tprompts.make_vtg_layout(TTokenizer(), "MSRVTT", 16)
+    with pytest.raises(ValueError):
+        t.encode_caption("", TTokenizer(), "MSRVTT")
+
+
+def test_caption_bank_copy_matches():
+    jl = jprompts.make_vtg_layout(JTokenizer(), "MSRVTT", 64, max_caption_tokens=24)
+    tl = tprompts.make_vtg_layout(TTokenizer(), "MSRVTT", 64, max_caption_tokens=24)
+    j = jrerank.CaptionBank.build_vtg(CAPTIONS, JTokenizer(), "MSRVTT", jl)
+    t = trerank.CaptionBank.build_vtg(CAPTIONS, TTokenizer(), "MSRVTT", tl)
+    for f in ("input_ids", "attention_mask", "cpn_mask", "window_labels", "suffix_ids",
+              "suffix_mask", "suffix_labels"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f), err_msg=f)
+
+
+@pytest.mark.parametrize("width", [15, 99, 768, 800, 1000])
+def test_default_pack_sizes_copy_matches(width):
+    assert trerank.default_pack_sizes(width) == jrerank.default_pack_sizes(width)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_packs_copy_matches(seed):
+    rng = np.random.default_rng(seed)
+    n_caps, n_pairs = 40, 200
+    seg_lens = rng.integers(3, 60, n_caps)
+    key = rng.integers(0, 7, n_pairs)
+    cap = rng.integers(0, n_caps, n_pairs)
+    sizes = trerank.default_pack_sizes(63)
+    assert trerank.build_packs(key, cap, seg_lens, sizes) == jrerank.build_packs(
+        key, cap, seg_lens, sizes)
+    small = (64, 128)
+    assert trerank.build_packs(key, cap, seg_lens, small) == jrerank.build_packs(
+        key, cap, seg_lens, small)
+
+
+def test_batch_plan_copy_matches():
+    for m in range(0, 41):
+        for G in (1, 2, 3, 5, 8):
+            for n_data in (1, 2):
+                if G % n_data:
+                    continue
+                assert trerank.batch_plan(m, G, n_data) == jrerank.batch_plan(m, G, n_data)
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_topk_pairs_copy_matches(k):
+    sims = np.random.default_rng(k).standard_normal((7, 9)).astype(np.float32)
+    sims[2, 3] = sims[2, 5]  # an exact tie resolves by ascending index in both
+    for a, b in zip(trerank.topk_pairs(sims, k), jrerank.topk_pairs(sims, k)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_unique_pairs_copy_matches():
+    rng = np.random.default_rng(5)
+    cap = rng.integers(0, 10, 80)
+    vid = rng.integers(0, 6, 80)
+    t, j = trerank.unique_pairs(cap, vid), jrerank.unique_pairs(cap, vid)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(np.reshape(a, -1), np.reshape(b, -1))
+        assert a.dtype == b.dtype
+
+
+def _score_mats(seed, n=12, zero=False):
+    rng = np.random.default_rng(seed)
+    t2v = rng.standard_normal((n, n)) + 0.01
+    v2t = rng.standard_normal((n, n)) + 0.01
+    if zero:
+        v2t[3, 4] = 0.0  # the skipped-direction sentinel
+    return t2v, v2t
+
+
+@pytest.mark.parametrize("zero", [False, True])
+@pytest.mark.parametrize("multi_gt", [False, True])
+def test_get_recall_copy_matches(zero, multi_gt):
+    t2v, v2t = _score_mats(3, zero=zero)
+    n = t2v.shape[0]
+    t2v_ids = {i: i for i in range(n)}
+    v2t_ids = {i: ([i, (i + 1) % n] if multi_gt else i) for i in range(n)}
+    assert trecall.get_recall(t2v, v2t, t2v_ids, v2t_ids) == jrecall.get_recall(
+        t2v, v2t, t2v_ids, v2t_ids)
+
+
+@pytest.mark.parametrize("cpn,has_tvg", [(True, False), (False, False), (True, True)])
+def test_all_scoring_results_copy_matches(cpn, has_tvg):
+    n = 12
+    rng = np.random.default_rng(9)
+    mat = lambda: rng.standard_normal((n, n)) + 0.01  # noqa: E731
+    t2v = {"internvideo2": mat(), "query_likelihood": mat()}
+    v2t = {"internvideo2": mat(), "candidate_likelihood": mat(), "candidate_prior": mat()}
+    if has_tvg:
+        t2v.update(candidate_likelihood=mat(), candidate_prior=mat())
+        v2t.update(query_likelihood=mat())
+    ids = {i: i for i in range(n)}
+    args = (ids, ids, (0.3, 0.8), (0.5, 0.4, 0.8, 0.6), cpn, has_tvg)
+    assert tfusion.all_scoring_results(t2v, v2t, *args) == jfusion.all_scoring_results(
+        t2v, v2t, *args)
+    for a, b in zip(tfusion.blim_ensemble(t2v, v2t, (0.3, 0.8), (0.5, 0.4, 0.8, 0.6), has_tvg),
+                    jfusion.blim_ensemble(t2v, v2t, (0.3, 0.8), (0.5, 0.4, 0.8, 0.6), has_tvg)):
+        np.testing.assert_array_equal(a, b)
