@@ -5,8 +5,13 @@ Layout. The port keeps the JAX tree as it is: nested dicts, per-layer
 weights stacked along a leading (L, ...) axis, every dense `kernel` in
 (in, out) form. The decoder applies `x @ kernel`, which needs no transpose,
 so this bridge transposes nothing; it only moves each leaf to the requested
-dtype and device. `visual_head` stays float32 whatever the dtype, as in the
-JAX package (an fp32 island of the TVG head).
+dtype and device. `visual_head` (an fp32 island of the TVG head) and every
+LoRA factor stay float32 whatever the dtype, as in the JAX package.
+
+The trainable tree ({"lora": {"llm", "projector"}, "visual_head"}, the JAX
+package's `train.init_trainable`) crosses as fp32 leaf tensors that require
+grad; `params_to_numpy` and `grads_to_numpy` bring the values and their
+gradients back.
 
 The seeded init draws from `torch.Generator`s on the target device with the
 JAX init's shapes and distributions (qwen2.init_params, projector.init_params,
@@ -28,7 +33,7 @@ from blim_tpu_torch.core.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
 
-_FP32_SUBTREES = ("visual_head",)
+_FP32_SUBTREES = ("visual_head", "lora")
 
 
 def params_from_numpy(tree: Params, dtype: torch.dtype = torch.float32,
@@ -50,12 +55,31 @@ def params_from_numpy(tree: Params, dtype: torch.dtype = torch.float32,
 
 
 def params_to_numpy(params: Params) -> Params:
-    """Tensor tree -> float32 numpy tree (the inverse bridge)."""
+    """Tensor tree -> float32 numpy tree (the inverse bridge): copies, so a
+    later in-place update of the tensors leaves them as they were."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     if params is None:
         return None
-    return params.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return params.detach().to(device="cpu", dtype=torch.float32).numpy().copy()
+
+
+def trainable_from_numpy(tree: Params, device: DeviceLike = "cuda") -> Params:
+    """Numpy trainable tree -> fp32 leaf tensors with requires_grad=True."""
+    return _map_leaves(params_from_numpy(tree, torch.float32, device),
+                       lambda t: t.requires_grad_(True))
+
+
+def grads_to_numpy(trainable: Params) -> Params:
+    """The .grad of every leaf as float32 numpy (zeros where none was set)."""
+    return _map_leaves(trainable, lambda t: params_to_numpy(
+        torch.zeros_like(t) if t.grad is None else t.grad))
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:

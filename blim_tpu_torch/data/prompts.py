@@ -1,13 +1,15 @@
-"""VTG prompt construction and the static right-padded VTG layout (copy of
-the VTG half of blim_tpu/data/prompts.py).
+"""Prompt construction and the static layouts (copy of
+blim_tpu/data/prompts.py, without its flat reference-shaped builders).
 
-  VTG (score P(text|video)):
+  VTG (score P(text|video)), right-padded:
       [pre][VIDEO x Nv][post][caption ... <|im_end|> \\n][PAD...]
   `pre` (system + user header) and `post` ("\\n" + instruction + turn ends +
   assistant header) are constants per dataset, so the video block and the
   label window live at fixed offsets; only the caption varies.
 
-The TVG layout joins the port with the fine-tuned flow.
+  TVG (score P(video|text)), left-padded:
+      [PAD...][prompt (instruction + caption) + assistant header][CLIP x num_clips][term]
+  so the clip block and the gather positions sit at fixed offsets.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ VTG_INSTRUCTIONS = {
     "LSMDC": "Describe this video in one sentence.",
     "MSRVTT": "Describe this video briefly.",
 }
+TVG_INSTRUCTION = "Generate a video given the caption."
 
 
 def tokenizer_image_token(prompt: str, tokenizer,
@@ -48,6 +51,15 @@ def tokenizer_image_token(prompt: str, tokenizer,
     return input_ids
 
 
+def get_tvg_prefix_length(tokenizer, init_prompt: str = TVG_INSTRUCTION) -> int:
+    """Number of leading TVG-prompt tokens kept visible by the CPN prior mask:
+    tokens of the bare instruction turn minus 2 (the trailing
+    ``<|im_end|>`` ``\\n``)."""
+    conv = conv_templates["qwen_2"].copy()
+    conv.append_message(conv.roles[0], init_prompt)
+    return len(tokenizer_image_token(conv.get_prompt(), tokenizer)) - 2
+
+
 def vtg_prompt_strings(caption: str, dataset: str) -> Tuple[str, str]:
     """(prompt-only, full) strings for the VTG direction."""
     instruction = VTG_INSTRUCTIONS[dataset]
@@ -59,6 +71,19 @@ def vtg_prompt_strings(caption: str, dataset: str) -> Tuple[str, str]:
     conv = conv_templates["qwen_2"].copy()
     conv.append_message(conv.roles[0], f"{DEFAULT_IMAGE_TOKEN}\n{instruction}")
     conv.append_message(conv.roles[1], caption)
+    return prompt_only, conv.get_prompt()
+
+
+def tvg_prompt_strings(caption: str) -> Tuple[str, str]:
+    """(prompt-only, full) strings for the TVG direction."""
+    conv = conv_templates["qwen_2"].copy()
+    conv.append_message(conv.roles[0], f"{TVG_INSTRUCTION}\nCaption: {caption}")
+    conv.append_message(conv.roles[1], None)
+    prompt_only = conv.get_prompt()
+
+    conv = conv_templates["qwen_2"].copy()
+    conv.append_message(conv.roles[0], f"{TVG_INSTRUCTION}\nCaption: {caption}")
+    conv.append_message(conv.roles[1], DEFAULT_IMAGE_TOKEN)
     return prompt_only, conv.get_prompt()
 
 
@@ -177,6 +202,96 @@ class VTGLayout:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class TVGLayout:
+    """Static left-padded TVG layout.
+
+    Sequence:  [pad | prompt(instr+caption)+assistant header | video x num_clips | term]
+    Left padding pins the video block to seq positions
+    [seq_len - num_clips - n_term, seq_len - n_term).
+
+    The text segment is tokenized in context (the whole prompt string at
+    once): a head/caption/tail token split would break under BPE because
+    "Caption: " ends with a space that merges into the caption's first word.
+    """
+
+    terminator_ids: Tuple[int, ...]    # ("<|im_end|>", "\n")
+    tvg_prefix_length: int
+    num_clips: int
+    seq_len: int
+    pad_id: int
+
+    @property
+    def video_start(self) -> int:
+        return self.seq_len - len(self.terminator_ids) - self.num_clips
+
+    @property
+    def gather_positions(self) -> np.ndarray:
+        """Hidden-state positions whose outputs predict each clip: one before
+        each video token."""
+        return np.arange(self.video_start - 1, self.video_start - 1 + self.num_clips)
+
+    @property
+    def prefix_len(self) -> int:
+        """Left-padded text prompt up to (excluding) the last text token."""
+        return self.video_start - 1
+
+    @property
+    def suffix_width(self) -> int:
+        """[last text token | clip tokens | terminators]."""
+        return 1 + self.num_clips + len(self.terminator_ids)
+
+    def encode_caption(self, caption: str, tokenizer) -> Dict[str, np.ndarray]:
+        prompt_only, _ = tvg_prompt_strings(caption)
+        return self.encode(tokenizer(prompt_only).input_ids)
+
+    def encode(self, text_ids: Sequence[int]) -> Dict[str, np.ndarray]:
+        """`text_ids`: the full prompt tokens through the assistant header."""
+        n_term = len(self.terminator_ids)
+        text = list(text_ids)
+        budget = self.seq_len - self.num_clips - n_term
+        if len(text) > budget:  # keep the assistant-header tail intact
+            # the last 5-6 tokens are "<|im_end|>\n<|im_start|>assistant\n";
+            # drop caption tokens immediately before them
+            tail_keep = n_term + 3
+            overflow = len(text) - budget
+            text = text[: len(text) - tail_keep - overflow] + text[len(text) - tail_keep:]
+        n_pad = budget - len(text)
+
+        ids = np.full((self.seq_len,), self.pad_id, np.int32)
+        labels = np.full((self.seq_len,), IGNORE_INDEX, np.int32)
+        attn = np.zeros((self.seq_len,), np.int32)
+        cpn = np.zeros((self.seq_len,), np.int32)
+        is_video = np.zeros((self.seq_len,), np.int32)
+
+        ids[n_pad: n_pad + len(text)] = text
+        attn[n_pad:] = 1
+        # CPN prior P(v): only the first tvg_prefix_length prompt tokens stay
+        # visible; the caption (and the rest of the text turn) is masked
+        cpn[n_pad: n_pad + min(self.tvg_prefix_length, len(text))] = 1
+        vs = self.video_start
+        is_video[vs: vs + self.num_clips] = 1
+        cpn[vs:] = 1  # video block + terminators stay visible in the prior pass
+        ids[vs: vs + self.num_clips] = 0
+        ids[vs + self.num_clips:] = self.terminator_ids
+        labels[vs + self.num_clips:] = self.terminator_ids
+        return {
+            "input_ids": ids,
+            "labels": labels,
+            "attention_mask": attn,
+            "cpn_mask": cpn,
+            "is_video": is_video,
+            "real_len": np.int32(len(text) + self.num_clips + n_term),
+        }
+
+
+def _terminator_ids(tokenizer) -> List[int]:
+    """Token ids of the assistant-turn terminator ``<|im_end|>\\n``.
+    `<|im_end|>` is a special token, so the "\\n" after it tokenizes exactly
+    as it does in the full rendered prompt."""
+    return tokenizer("<|im_end|>\n").input_ids
+
+
 def make_vtg_layout(tokenizer, dataset: str, num_video_tokens: int,
                     max_caption_tokens: int = 96, align: int = 64) -> VTGLayout:
     """Derive the static VTG layout for a dataset from its prompt template."""
@@ -185,9 +300,7 @@ def make_vtg_layout(tokenizer, dataset: str, num_video_tokens: int,
     img_pos = prompt_ids.index(IMAGE_TOKEN_INDEX)
     pre = tuple(prompt_ids[:img_pos])
     post = tuple(prompt_ids[img_pos + 1:])
-    # `<|im_end|>` is a special token, so the "\n" after it tokenizes exactly
-    # as it does in the full rendered prompt
-    term = tuple(tokenizer("<|im_end|>\n").input_ids)
+    term = tuple(_terminator_ids(tokenizer))
     body = len(pre) + num_video_tokens + len(post) + max_caption_tokens + len(term)
     return VTGLayout(
         pre_ids=pre,
@@ -195,6 +308,21 @@ def make_vtg_layout(tokenizer, dataset: str, num_video_tokens: int,
         terminator_ids=term,
         num_video_tokens=num_video_tokens,
         max_caption_tokens=max_caption_tokens,
+        seq_len=_round_up(body, align),
+        pad_id=tokenizer.pad_token_id,
+    )
+
+
+def make_tvg_layout(tokenizer, num_clips: int, max_caption_tokens: int = 96,
+                    align: int = 64) -> TVGLayout:
+    """Derive the static TVG layout from the TVG prompt template."""
+    base_ids = tokenizer(tvg_prompt_strings("")[0]).input_ids
+    term = tuple(_terminator_ids(tokenizer))
+    body = len(base_ids) + max_caption_tokens + num_clips + len(term)
+    return TVGLayout(
+        terminator_ids=term,
+        tvg_prefix_length=get_tvg_prefix_length(tokenizer),
+        num_clips=num_clips,
         seq_len=_round_up(body, align),
         pad_id=tokenizer.pad_token_id,
     )

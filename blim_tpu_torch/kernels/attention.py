@@ -1,5 +1,5 @@
-"""Attention dispatch: the hand-written flash kernel on CUDA tensors, the
-plain PyTorch version on CPU tensors (port of blim_tpu/kernels/attention.py).
+"""Attention dispatch: the hand-written flash kernels on CUDA tensors, the
+plain PyTorch versions on CPU tensors (port of blim_tpu/kernels/attention.py).
 
 Semantics (flash-attn varlen output semantics, as in the JAX package): GQA
 without repeating K/V; masked keys get the finite logit -1e30; masked query
@@ -73,15 +73,23 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """GQA attention, q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (B,S,Hq,D).
 
-    A CUDA tensor always goes to the hand-written kernel, whatever its size
-    (the JAX wrapper's small-problem gate does not apply). The kernel has no
-    sliding window (dormant in BLiM configs), so `window` on a CUDA tensor
-    raises; on a CPU tensor it runs the plain version."""
-    if q.device.type == "cpu":
+    A tensor that needs a gradient (grad mode on and any of q, k, v
+    requiring grad) goes through the differentiable flash attention: on CUDA
+    the B1-lse forward and the B3/B4 backward kernels, on the CPU their
+    plain versions inside the same autograd Function. Any other CUDA tensor
+    goes to the inference kernel B1, whatever its size (the JAX wrapper's
+    small-problem gate does not apply). The kernels have no sliding window
+    (dormant in BLiM configs), so `window` on a CUDA tensor raises; on a CPU
+    tensor it runs the plain version under autograd."""
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                              or v.requires_grad)
+    if q.device.type == "cpu" and (window is not None or not needs_grad):
         return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
     if window is not None:
         raise NotImplementedError("sliding-window attention has no CUDA kernel yet")
-    from blim_tpu_torch.kernels.flash_attention import flash_attention
-
-    return flash_attention(q, k, v, key_mask=key_mask, query_mask=query_mask,
-                           causal=causal, scale=scale)
+    if needs_grad:
+        return fa.FlashAttentionFunction.apply(q, k, v, key_mask, query_mask, causal, scale)
+    return fa.flash_attention(q, k, v, key_mask=key_mask, query_mask=query_mask, causal=causal,
+                              scale=scale)

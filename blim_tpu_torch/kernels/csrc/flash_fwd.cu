@@ -1,10 +1,13 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full, masked or
-// dense, GQA, bf16 in / fp32 accumulate, inference mode (no logsumexp).
+// dense, GQA, bf16 in / fp32 accumulate, with or without the fp32 logsumexp
+// rows that the backward (flash_bwd.cu) reads.
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_fwd_kernel` (:42-125),
-// launched by `_flash_forward` -> pl.pallas_call (:178), in the causal masked
-// mode that every prefix forward of the zero-shot rerank path runs
-// (qwen2.forward_collect_kv -> attention.multi_head_attention).
+// launched by `_flash_forward` -> pl.pallas_call (:178): without lse in the
+// causal masked mode that every prefix forward of the zero-shot rerank path
+// runs (qwen2.forward_collect_kv -> attention.multi_head_attention), and
+// with lse (`lse_ref`, :121-125, via `_vjp_fwd` :434) for every attention
+// call of the LoRA train step.
 //
 // Semantics, the same as the TPU kernel and the plain version
 // (kernels/attention.py::reference_attention):
@@ -16,7 +19,11 @@
 //   * online softmax in fp32 (running max m, running sum l, l clamped at
 //     1e-30 before the division); P is cast to bf16 before the P.V product,
 //     as the TPU kernel casts p to v's dtype;
-//   * rows with query_mask == 0 write zeros; rows beyond S are not written.
+//   * rows with query_mask == 0 write zeros; rows beyond S are not written;
+//   * with an lse pointer, each row < S also writes m + log(max(l, 1e-30))
+//     in fp32, in the scaled-logit domain, as the TPU kernel's lse_ref. A
+//     row whose keys are all masked gets -1e30 + log(n) there; the backward
+//     multiplies its dO by the query mask, so that value reaches no gradient.
 //
 // What bounds it on the card. At the main-path shape (B = G packs, S = 341,
 // Hq = 28, Hkv = 4, d = 128, causal) one launch moves ~5.6 MB per pack
@@ -88,11 +95,13 @@ struct Params {
   bf16* o;
   const int* key_mask;    // (B, S), row stride mask_sb; null when dense
   const int* query_mask;
+  float* lse;             // (B, Hq, S) with strides lse_sb, lse_sh, unit along S; null = none
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   long long mask_sb;
+  long long lse_sb, lse_sh;
   int seq_len;
   int group;              // Hq / Hkv
   float scale;
@@ -264,6 +273,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     }
     *reinterpret_cast<uint4*>(ob + (long long)qpos * p.o_ss + c) = packed;
   }
+  if (p.lse != nullptr && tid < kBQ && q0 + tid < S) {
+    p.lse[b * p.lse_sb + h * p.lse_sh + q0 + tid] = sm.m[tid] + logf(fmaxf(sm.l[tid], 1e-30f));
+  }
 }
 
 }  // namespace
@@ -271,10 +283,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 // Plain C entry point, bound from Python with ctypes. Pointers are device
 // pointers of bf16 (B, S, H, 128) tensors whose last dim is contiguous and
 // whose other strides are multiples of 8 elements; masks are int32 (B, S)
-// with unit stride along S, both null for the dense variant. Launches on
+// with unit stride along S, both null for the dense variant. `lse` is null
+// (inference) or fp32 (B, Hq, S) with unit stride along S. Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               const int* key_mask, const int* query_mask, void* out,
+                              float* lse, long long lse_sb, long long lse_sh,
                               int batch, int seq_len, int num_q_heads, int num_kv_heads,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
@@ -288,6 +302,9 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
   p.o = static_cast<bf16*>(out);
   p.key_mask = key_mask;
   p.query_mask = query_mask;
+  p.lse = lse;
+  p.lse_sb = lse_sb;
+  p.lse_sh = lse_sh;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -315,6 +332,9 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
   }
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a CTA of the kernel uses, in bytes.
+extern "C" int blim_flash_fwd_smem_bytes() { return (int)sizeof(Smem); }
 
 extern "C" const char* blim_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

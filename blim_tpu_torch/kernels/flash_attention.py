@@ -1,17 +1,22 @@
-"""Flash-attention forward: the hand-written Hopper kernel (csrc/flash_fwd.cu)
-and its wrapper. Port of blim_tpu/kernels/flash_attention.py's forward
-(`_fwd_kernel` via `_flash_forward` / `flash_attention`), inference mode.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu), their wrappers, their plain PyTorch
+versions and the autograd Function that joins them. Port of
+blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse (B1, the
+zero-shot prefix forwards) and with lse (B1-lse, `_vjp_fwd`), `_dq_kernel`
+(B3), `_dkv_kernel` (B4), and the custom VJP `_flash_attention`.
 
-Build. At first use the wrapper compiles csrc/flash_fwd.cu with nvcc for
-sm_90a into a shared library with a plain C entry point and loads it with
-ctypes. The library lands in `blim_tpu_torch/_build/<name>-<hash>/`, keyed
-by a hash of the source and the flags, so an edit rebuilds. A failed build
-raises: there is no fallback to the plain version on a CUDA tensor.
+Build. At first use a wrapper compiles its source with nvcc for sm_90a into
+a shared library with plain C entry points and loads it with ctypes. Each
+library lands in `blim_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of
+its source and the flags, so an edit rebuilds. `build()` compiles both
+sources at once, one nvcc each. A failed build raises: there is no fallback
+to the plain version on a CUDA tensor.
 
-Dispatch. A CPU tensor goes to the plain version (attention.reference_attention);
-a CUDA tensor launches the kernel or raises. `launches` counts kernel
-launches and nothing else; callers reset it to 0 to check that a path went
-through the kernel.
+Dispatch. A CPU tensor goes to the plain version; a CUDA tensor launches
+the kernel or raises. The counters count kernel launches and nothing else:
+`launches` (B1, inference), `launches_lse` (B1-lse), `launches_dq` (B3) and
+`launches_dkv` (B4). Callers reset them to 0 to check that a path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from blim_tpu_torch.kernels.attention import reference_attention
+from blim_tpu_torch.kernels.attention import NEG_INF, reference_attention
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,8 +42,21 @@ NVCC_FLAGS = (
 )
 HEAD_DIM = 128
 
-launches = 0          # kernel launches since the caller last reset it
-_lib = None
+launches = 0          # B1 (no lse) launches since the caller last reset it
+launches_lse = 0      # B1-lse launches
+launches_dq = 0       # B3 launches
+launches_dkv = 0      # B4 launches
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    global launches, launches_lse, launches_dq, launches_dkv
+    launches = launches_lse = launches_dq = launches_dkv = 0
+
+
+def counts() -> Dict[str, int]:
+    return {"flash_fwd": launches, "flash_fwd_lse": launches_lse,
+            "flash_dq": launches_dq, "flash_dkv": launches_dkv}
 
 
 def _nvcc() -> str:
@@ -48,47 +67,71 @@ def _nvcc() -> str:
 
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_ROOT / f"flash_fwd-{digest[:16]}" / "libflash_fwd.so"
+def library_path(name: str = "flash_fwd") -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
 
 
-def build() -> str:
-    """Compile the kernel unless this source's library exists; returns the
-    compiler's report (ptxas registers, shared memory, spills), "" when the
-    library was already built."""
-    so = library_path()
-    if so.exists():
-        return ""
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    report = proc.stdout + proc.stderr
-    (so.parent / "build.log").write_text(report)
-    os.replace(tmp, so)
-    return report
+def build(names=tuple(SOURCES)) -> Dict[str, str]:
+    """Compile each named source whose library does not exist yet, all at
+    once; returns {name: compiler report (ptxas registers, shared memory,
+    spills)}, "" for a library that was already built."""
+    nvcc = None
+    running = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, so)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, so) in running.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {SOURCES[name].name}:\n{out}")
+            continue
+        (so.parent / "build.log").write_text(out)
+        os.replace(tmp, so)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.blim_flash_fwd.argtypes = (
-            [ptr] * 6 + [i32] * 4 + [i64] * 13 + [ctypes.c_float, i32, ptr]
-        )
-        lib.blim_flash_fwd.restype = i32
-        lib.blim_cuda_error_string.argtypes = [i32]
-        lib.blim_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _library(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        if name == "flash_fwd":
+            lib.blim_flash_fwd.argtypes = (
+                [ptr] * 7 + [i64] * 2 + [i32] * 4 + [i64] * 13 + [f32, i32, ptr]
+            )
+            lib.blim_flash_fwd.restype = i32
+            lib.blim_cuda_error_string.argtypes = [i32]
+            lib.blim_cuda_error_string.restype = ctypes.c_char_p
+        else:
+            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
+            lib.blim_flash_dq.restype = i32
+            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+            lib.blim_flash_dkv.restype = i32
+            lib.blim_flash_bwd_error_string.argtypes = [i32]
+            lib.blim_flash_bwd_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _raise_on(rc: int, what: str, error_string) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({error_string(rc).decode()})")
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -104,6 +147,12 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of 8")
 
 
+def _check_shapes(q, k, v) -> None:
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"incompatible shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+
+
 def _mask_operand(m: Optional[torch.Tensor], shape, device) -> torch.Tensor:
     if m is None:
         return torch.ones(shape, dtype=torch.int32, device=device)
@@ -112,6 +161,130 @@ def _mask_operand(m: Optional[torch.Tensor], shape, device) -> torch.Tensor:
     if m.device != device:
         raise ValueError(f"mask is on {m.device}, expected {device}")
     return m.to(torch.int32).contiguous()
+
+
+def _cuda_device(q: torch.Tensor, entry: str) -> torch.device:
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA or CPU tensors, got {q.device}")
+    return q.device
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors, and the yardstick the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def _visible(s: int, key_mask: Optional[torch.Tensor], causal: bool,
+             device) -> Optional[torch.Tensor]:
+    """(B or 1, 1, 1, S, S) bool: query i sees key j."""
+    idx = torch.arange(s, device=device)
+    vis = (idx[:, None] >= idx[None, :])[None, None, None] if causal else None
+    if key_mask is not None:
+        km = key_mask.bool()[:, None, None, None, :]
+        vis = km if vis is None else vis & km
+    return vis
+
+
+def reference_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None, query_mask: Optional[torch.Tensor] = None,
+    causal: bool = True, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of B1-lse: reference_attention's output and the fp32
+    logsumexp rows (B, Hq, S) of the masked scaled scores, the TPU kernel's
+    `m + log(l)`. A row whose keys are all masked gets -1e30 + log(S) here;
+    the kernels' value depends on how many keys their tiling visits, and
+    neither reaches a gradient."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    out = reference_attention(q, k, v, key_mask, query_mask, causal, scale)
+    qg = (q.float() * scale).reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    vis = _visible(s, key_mask, causal, q.device)
+    if vis is not None:
+        scores = scores.masked_fill(~vis, NEG_INF)
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, hq, s)
+
+
+def _mask_grad(dout: torch.Tensor, query_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if query_mask is None:
+        return dout
+    return dout * query_mask[:, :, None, None].to(dout.dtype)
+
+
+def reference_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor], query_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of B3 + B4: `_flash_backward`'s math step by step in
+    fp32 (not autograd). dO is multiplied by the query mask before delta =
+    rowsum(dO * O) and before anything else reads it, so fully masked query
+    rows contribute nothing. Returns (dq, dk, dv) in q's, k's and v's dtype."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    grp = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    g = _mask_grad(dout, query_mask).float()
+    delta = (g * out.float()).sum(dim=-1)                                   # (B, S, Hq)
+    qs = (q.float() * scale).reshape(b, s, hkv, grp, d)
+    kf, vf = k.float(), v.float()
+    gg = g.reshape(b, s, hkv, grp, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
+    vis = _visible(s, key_mask, causal, q.device)
+    if vis is not None:
+        sc = sc.masked_fill(~vis, NEG_INF)
+    p = torch.exp(sc - lse.reshape(b, hkv, grp, s)[..., None])
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", gg, vf)
+    ds = p * (dp - delta.reshape(b, s, hkv, grp).permute(0, 2, 3, 1)[..., None])
+    if vis is not None:
+        ds = ds.masked_fill(~vis, 0.0)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, s, hq, d) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool):
+    global launches, launches_lse
+    dev = _cuda_device(q, "flash_attention")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, dev)
+    _check_shapes(q, k, v)
+    b, s, hq, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if with_lse else None
+    if q.numel() == 0:
+        return out, lse
+    dense = key_mask is None and query_mask is None
+    km = qm = None
+    if not dense:
+        km = _mask_operand(key_mask, (b, s), dev)
+        qm = _mask_operand(query_mask, (b, s), dev)
+    lib = _library("flash_fwd")
+    rc = lib.blim_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if dense else km.data_ptr(), None if dense else qm.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), hq * s, s,
+        b, s, hq, k.shape[2],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        0 if dense else km.stride(0),
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "flash_fwd", lib.blim_cuda_error_string)
+    if with_lse:
+        launches_lse += 1
+    else:
+        launches += 1
+    return out, lse
 
 
 def flash_attention(
@@ -124,44 +297,95 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q (B,S,Hq,128); k,v (B,S,Hkv,128) bf16; masks (B,S) -> (B,S,Hq,128).
+    """B1, inference: q (B,S,Hq,128); k,v (B,S,Hkv,128) bf16; masks (B,S) ->
+    (B,S,Hq,128). No gradient flows through it.
 
     Both masks None selects the dense variant, which loads no mask; one mask
     alone is paired with an all-ones other, as in the JAX wrapper."""
-    global launches
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention(q, k, v, key_mask, query_mask, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+    return _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=False)[0]
+
+
+def flash_attention_lse(q, k, v, *, key_mask=None, query_mask=None, causal=True,
+                        scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1-lse: flash_attention's output and the fp32 logsumexp rows (B, Hq, S),
+    written for rows < S."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return reference_attention_lse(q, k, v, key_mask, query_mask, causal, scale)
+    return _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True)
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor], query_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B3 + B4 (`_flash_backward`): dO times the query mask and delta =
+    rowsum(dO * O) in fp32 are two torch ops, as they were XLA outside Pallas;
+    then B3 writes dq and B4 writes dk and dv. Same signature and result as
+    reference_attention_backward, which a CPU tensor takes."""
+    global launches_dq, launches_dkv
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return reference_attention_backward(q, k, v, key_mask, query_mask, out, lse, dout,
+                                            causal, scale)
+    dev = _cuda_device(q, "flash_attention_backward")
+    g = _mask_grad(dout, query_mask).to(q.dtype).contiguous()
+    delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # (B, Hq, S)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", g)):
+        _check_operand(name, t, dev)
+    _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
     hkv = k.shape[2]
-    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or hq % hkv:
-        raise ValueError(f"incompatible shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32 or lse.device != dev:
+        raise ValueError(f"lse must be fp32 {(b, hq, s)} on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
+        return dq, dk, dv
+    km = None if key_mask is None else _mask_operand(key_mask, (b, s), dev)
+    km_ptr = None if km is None else km.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _library("flash_bwd")
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), km_ptr)
+    rc = lib.blim_flash_dq(*common, dq.data_ptr(), b, s, hq, hkv, float(scale),
+                           int(bool(causal)), stream)
+    _raise_on(rc, "flash_dq", lib.blim_flash_bwd_error_string)
+    launches_dq += 1
+    rc = lib.blim_flash_dkv(*common, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv,
+                            float(scale), int(bool(causal)), stream)
+    _raise_on(rc, "flash_dkv", lib.blim_flash_bwd_error_string)
+    launches_dkv += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The counterpart of the JAX custom VJP `_flash_attention` (`_vjp_fwd` /
+    `_vjp_bwd`): the forward runs B1-lse and saves q, k, v, the masks, O and
+    lse; the backward runs B3 and B4 and returns gradients for q, k, v only.
+    CPU tensors take the plain versions at both ends."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, query_mask, causal, scale):
+        out, lse = flash_attention_lse(q, k, v, key_mask=key_mask, query_mask=query_mask,
+                                       causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, key_mask, query_mask, out, lse)
+        ctx.causal, ctx.scale = causal, scale
         return out
-    dense = key_mask is None and query_mask is None
-    km = qm = None
-    if not dense:
-        km = _mask_operand(key_mask, (b, s), q.device)
-        qm = _mask_operand(query_mask, (b, s), q.device)
-    lib = _library()
-    rc = lib.blim_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if dense else km.data_ptr(), None if dense else qm.data_ptr(), out.data_ptr(),
-        b, s, hq, hkv,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        0 if dense else km.stride(0),
-        float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc} "
-                           f"({lib.blim_cuda_error_string(rc).decode()})")
-    launches += 1
-    return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, query_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, key_mask, query_mask, out, lse, dout,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None

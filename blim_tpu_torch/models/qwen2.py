@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from blim_tpu_torch.adapters.lora import apply_dense
 from blim_tpu_torch.core.config import Qwen2Config
@@ -113,6 +114,31 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device)[None].expand(B, S)
 
 
+def _decoder_layer(c: Qwen2Config, lp: Params, hidden: torch.Tensor, cos, sin,
+                   mask: Optional[torch.Tensor], window, ll: Optional[Params],
+                   lora_scale: float):
+    """One decoder layer -> (hidden, post-RoPE k, v). A position with mask 0
+    is invisible as a key and emits a zero attention output as a query."""
+    x = rms_norm(hidden, lp["input_layernorm"]["scale"], c.rms_norm_eps)
+    q, k, v = _qkv(c, lp, x, cos, sin, ll, lora_scale)
+    attn = multi_head_attention(q, k, v, key_mask=mask, query_mask=mask, causal=True,
+                                scale=c.head_dim ** -0.5, window=window)
+    return _mlp(c, lp, _attn_out(c, lp, hidden, attn, ll, lora_scale)), k, v
+
+
+def _stack_inputs(params, config, inputs_embeds, position_ids, lora):
+    """Per-layer (weights, LoRA, window) and the RoPE tables of a forward."""
+    c = config
+    if position_ids is None:
+        position_ids = _default_positions(inputs_embeds)
+    cos, sin = rope_cos_sin(position_ids, c.head_dim, c.rope_theta)
+    wins = _layer_windows(c, inputs_embeds.shape[1])
+    layers = [(_layer_slice(params["layers"], i),
+               _layer_slice(None if lora is None else lora["layers"], i),
+               None if wins is None else wins[i]) for i in range(c.num_hidden_layers)]
+    return layers, cos, sin
+
+
 # ---------------------------------------------------------------------------
 # Public forward surface
 # ---------------------------------------------------------------------------
@@ -133,26 +159,15 @@ def forward_collect_kv(
     A position with mask 0 is invisible as a key and emits a zero attention
     output as a query (then keeps evolving through the residual and MLP).
     """
-    c = config
-    if position_ids is None:
-        position_ids = _default_positions(inputs_embeds)
-    cos, sin = rope_cos_sin(position_ids, c.head_dim, c.rope_theta)
-    wins = _layer_windows(c, inputs_embeds.shape[1])
+    layers, cos, sin = _stack_inputs(params, config, inputs_embeds, position_ids, lora)
     hidden = inputs_embeds
     ks, vs = [], []
-    for i in range(c.num_hidden_layers):
-        lp = _layer_slice(params["layers"], i)
-        ll = _layer_slice(None if lora is None else lora["layers"], i)
-        x = rms_norm(hidden, lp["input_layernorm"]["scale"], c.rms_norm_eps)
-        q, k, v = _qkv(c, lp, x, cos, sin, ll, lora_scale)
-        attn = multi_head_attention(
-            q, k, v, key_mask=attention_mask, query_mask=attention_mask, causal=True,
-            scale=c.head_dim ** -0.5, window=None if wins is None else wins[i],
-        )
-        hidden = _mlp(c, lp, _attn_out(c, lp, hidden, attn, ll, lora_scale))
+    for lp, ll, win in layers:
+        hidden, k, v = _decoder_layer(config, lp, hidden, cos, sin, attention_mask, win, ll,
+                                      lora_scale)
         ks.append(k)
         vs.append(v)
-    hidden = rms_norm(hidden, params["norm"]["scale"], c.rms_norm_eps)
+    hidden = rms_norm(hidden, params["norm"]["scale"], config.rms_norm_eps)
     return hidden, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -165,11 +180,29 @@ def forward_hidden(
     *,
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Run the decoder stack; returns the final post-norm hidden (B,S,D)."""
-    hidden, _ = forward_collect_kv(params, config, inputs_embeds, attention_mask,
-                                   position_ids, lora=lora, lora_scale=lora_scale)
-    return hidden
+    """Run the decoder stack; returns the final post-norm hidden (B,S,D).
+
+    With `remat`, each layer runs under non-reentrant activation
+    checkpointing (the JAX package's per-layer `jax.checkpoint`): the
+    backward recomputes the layer's forward instead of keeping its
+    activations, so only each layer's input hidden state is kept."""
+    layers, cos, sin = _stack_inputs(params, config, inputs_embeds, position_ids, lora)
+
+    def layer(hidden, lp, ll, win):
+        return _decoder_layer(config, lp, hidden, cos, sin, attention_mask, win, ll,
+                              lora_scale)[0]
+
+    hidden = inputs_embeds
+    for lp, ll, win in layers:
+        if remat:
+            # the layer draws no random numbers: no RNG state to replay
+            hidden = checkpoint(layer, hidden, lp, ll, win, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            hidden = layer(hidden, lp, ll, win)
+    return rms_norm(hidden, params["norm"]["scale"], config.rms_norm_eps)
 
 
 def _packed_prefix_attention(

@@ -1,5 +1,5 @@
-"""VideoChat-Flash VTG scoring surface (port of the VTG half of
-blim_tpu/models/videochat_flash.py).
+"""VideoChat-Flash scoring and training surface (port of the VTG scoring
+half and the training forwards of blim_tpu/models/videochat_flash.py).
 
 Batch dict contract of the naive path (`score_vtg`):
   input_ids       (B, T) int   layout token ids (video slots arbitrary)
@@ -7,6 +7,10 @@ Batch dict contract of the naive path (`score_vtg`):
   cpn_mask        (B, T) int   CPN prior visibility mask
   video           (B, clips, tokens_per_clip, mm) cached features
   window_labels   (B, W) int   labels of the static label window
+
+Training forwards (`vtg_hidden`, `tvg_hidden`) take the LoRA tree, LoRA
+dropout on the projector (drawn from a `torch.Generator`) and `remat`
+(per-layer activation checkpointing).
 
 Shared-prefix scoring: every VTG pair that shares a video also shares the
 whole [pre][video][post] prefix, so the prefix runs once per video and only
@@ -53,21 +57,56 @@ def splice_video(token_embeds: torch.Tensor,   # (B, T, D)
                       token_embeds[:, video_start + nv:]], dim=1)
 
 
-def _embed_with_video(params, ids, video, video_start, lora, lora_scale):
+def _embed_with_video(params, ids, video, video_start, lora, lora_scale, project=None,
+                      **dropout):
     _, proj_lora = _lora_parts(lora)
-    vid = projector_lib.project_vtg(params["projector"], video, lora=proj_lora,
-                                    lora_scale=lora_scale)
+    vid = (project or projector_lib.project_vtg)(params["projector"], video, lora=proj_lora,
+                                                 lora_scale=lora_scale, **dropout)
     return splice_video(qwen2.embed_tokens(params["llm"], ids), vid, video_start)
 
 
 def vtg_hidden(params: Params, config: ModelConfig, input_ids: torch.Tensor,
                mask: torch.Tensor, video: torch.Tensor, video_start: int, *,
-               lora: Optional[Params] = None, lora_scale: float = 0.0) -> torch.Tensor:
+               lora: Optional[Params] = None, lora_scale: float = 0.0,
+               generator: Optional[torch.Generator] = None, lora_dropout: float = 0.0,
+               remat: bool = False) -> torch.Tensor:
     """Embed + splice + decode for the VTG direction; returns (B, T, D)."""
-    emb = _embed_with_video(params, input_ids, video, video_start, lora, lora_scale)
+    emb = _embed_with_video(params, input_ids, video, video_start, lora, lora_scale,
+                            generator=generator, lora_dropout=lora_dropout)
     llm_lora, _ = _lora_parts(lora)
     return qwen2.forward_hidden(params["llm"], config.llm, emb, mask,
-                                lora=llm_lora, lora_scale=lora_scale)
+                                lora=llm_lora, lora_scale=lora_scale, remat=remat)
+
+
+def tvg_hidden(params: Params, config: ModelConfig, input_ids: torch.Tensor,
+               mask: torch.Tensor, video: torch.Tensor, video_start: int, *,
+               lora: Optional[Params] = None, lora_scale: float = 0.0,
+               generator: Optional[torch.Generator] = None, lora_dropout: float = 0.0,
+               remat: bool = False) -> torch.Tensor:
+    """Embed + splice + decode for the TVG direction (one token per clip);
+    returns (B, T, D)."""
+    emb = _embed_with_video(params, input_ids, video, video_start, lora, lora_scale,
+                            project=projector_lib.project_tvg, generator=generator,
+                            lora_dropout=lora_dropout)
+    llm_lora, _ = _lora_parts(lora)
+    return qwen2.forward_hidden(params["llm"], config.llm, emb, mask,
+                                lora=llm_lora, lora_scale=lora_scale, remat=remat)
+
+
+def vtg_window_logits(params: Params, config: ModelConfig, hidden: torch.Tensor,
+                      window_start: int, window_len: int, lora: Optional[Params] = None,
+                      lora_scale: float = 0.0) -> torch.Tensor:
+    """Slice the static label window and apply the LM head (fp32, with its
+    LoRA) there only."""
+    llm_lora, _ = _lora_parts(lora)
+    return qwen2.lm_logits(params["llm"], hidden[:, window_start: window_start + window_len],
+                           config.llm, lora=llm_lora, lora_scale=lora_scale)
+
+
+def make_video_vocab(features: torch.Tensor) -> torch.Tensor:
+    """(V, clips, tokens_per_clip, mm) cached features -> (V, clips, mm)
+    vocabulary, the mean over the token axis."""
+    return features.mean(dim=-2)
 
 
 def score_vtg(params: Params, config: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -1,9 +1,12 @@
-"""VTG likelihood criteria in fp32 (port of the VTG half of
+"""Likelihood criteria and training losses in fp32 (port of
 blim_tpu/scoring/criteria.py).
 
 VTG eval criterion: the negated mean per-token cross-entropy over labeled
 tokens. The LM head runs only on scored positions, and the fused CE streams
 the vocabulary in chunks so the (rows, V) logits are never materialized.
+TVG: per-clip classification of the true video against the video
+vocabulary through the fp32 `visual_head`. Training losses are the
+batch-mean variants.
 """
 
 from __future__ import annotations
@@ -26,6 +29,39 @@ def token_ce_from_logits(logits: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     target = logits.gather(-1, safe[..., None])[..., 0]
     return torch.where(valid, logz - target, torch.zeros_like(logz)), valid
+
+
+def vtg_train_loss(window_logits: torch.Tensor, window_labels: torch.Tensor) -> torch.Tensor:
+    """Scalar batch-mean CE over all labeled tokens."""
+    ce, valid = token_ce_from_logits(window_logits, window_labels)
+    return ce.sum() / valid.sum().clamp(min=1)
+
+
+def tvg_clip_logits(clip_hidden: torch.Tensor,         # (B, num_clips, D) at the gather positions
+                    visual_head_kernel: torch.Tensor,  # (D, mm_hidden), fp32
+                    video_vocab: torch.Tensor,         # (V, num_clips, mm_hidden)
+                    ) -> torch.Tensor:
+    """Per-clip logits over the video vocabulary, in fp32:
+    logits[b, c, v] = <visual_head(h[b, c]), vocab[v, c]> / sqrt(mm_hidden)."""
+    proj = clip_hidden.float() @ visual_head_kernel.float()
+    scale = video_vocab.shape[-1] ** -0.5
+    return torch.einsum("bcm,vcm->bcv", proj, video_vocab.float()) * scale
+
+
+def _clip_ce(clip_logits: torch.Tensor, video_label: torch.Tensor) -> torch.Tensor:
+    labels = video_label[:, None].expand(clip_logits.shape[:2])
+    return token_ce_from_logits(clip_logits, labels)[0]
+
+
+def tvg_likelihood(clip_logits: torch.Tensor, video_label: torch.Tensor) -> torch.Tensor:
+    """Per-row score = -mean over clips of CE(correct video). clip_logits
+    (B, C, V); video_label (B,)."""
+    return -_clip_ce(clip_logits, video_label).mean(dim=-1)
+
+
+def tvg_train_loss(clip_logits: torch.Tensor, video_label: torch.Tensor) -> torch.Tensor:
+    """Scalar batch-mean CE of the true video over every clip."""
+    return _clip_ce(clip_logits, video_label).mean()
 
 
 def ce_from_hidden(

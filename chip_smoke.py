@@ -4,18 +4,30 @@
     python3 chip_smoke.py
 
 Phases, one line each (all numbers beside the card's name and power limit):
-  1. build    compile every hand-written kernel of the main path from the
-              checkout's sources (nvcc, sm_90a; one source so far);
-  2. kernels  hold each kernel to its plain PyTorch version on the card at
-              the main path's shapes, and time kernel, plain version, one
-              PyTorch library call of the same function (yardstick only)
-              and the card's bound for the same work;
+  1. build    compile every hand-written kernel from the checkout's sources
+              (nvcc, sm_90a, one process per source, all at once) and print
+              each kernel's registers, spills and shared memory;
+  2. kernels  hold B1 (flash_fwd, inference) to its plain PyTorch version
+              at the zero-shot path's shapes, and time kernel, plain
+              version, one PyTorch library call of the same function
+              (yardstick only) and the card's bound for the same work;
   3. slice    the zero-shot rerank flow (CPN priors + packed VTG scoring) at
               Qwen2-7B width and depth in bf16 with seeded random weights
               and synthetic inputs: untimed at WARM_ITEMS, timed at ITEMS;
               the kernel launch counts of the timed run must match the path;
   4. packed   packed shared-prefix scores against the naive full-sequence
-              path on the card.
+              path on the card;
+  5. train-kernels  B1-lse, B3 (flash_dq) and B4 (flash_dkv) against their
+              plain versions at the train step's VTG and TVG shapes, timed
+              like phase 2 (library yardstick: SDPA forward, and SDPA's
+              backward for dq + dk + dv together);
+  6. train    the 7B LoRA train step (VTG + TVG losses, backward through the
+              frozen 7B with per-layer recompute, AdamW) on phase 3's
+              weights: TRAIN_WARM untimed steps, then TRAIN_STEPS timed
+              ones whose launch counts must match the path;
+  7. gradcheck  at full width and GRADCHECK_LAYERS layers, the loss and the
+              LoRA gradients through the kernels against the same step
+              through the plain attention.
 Then one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -41,14 +53,30 @@ PEAK_BF16_FLOPS = 989e12
 ATTN_ATOL, ATTN_RTOL = 1e-2, 2e-2   # |kernel - plain| <= atol + rtol |plain|:
                      # two bf16 ulps (both round P and O to bf16, at different
                      # points of the online softmax)
+LSE_TOL = 1e-3       # |kernel - plain| lse on query-mask-1 rows: fp32 sums of
+                     # exact bf16 products in another order, ~1e-6 relative at |lse| ~ 7
+GRAD_TOL = 3e-2      # |kernel - plain| dq, dk, dv over max|plain|: the kernels
+                     # round P and dS to bf16 before their tensor-core products
+                     # and write bf16; the plain version keeps fp32 to the end
 PACKED_TOL = 5e-2    # max |packed - naive| on per-caption mean CE (~12)
                      # after 28 bf16 layers computed in a different order
 
 ITEMS = 256          # queries in the timed run
 WARM_ITEMS = 64      # queries in the untimed run before it
 TOPK = 16
-CAPTION_TOKENS = 96  # caption budget of the VTG layout
+CAPTION_TOKENS = 96  # caption budget of the VTG and TVG layouts
 SEED = 0
+
+TRAIN_B = 4          # train batch, 64-video vocabulary, lr 1e-4 without warmup,
+TRAIN_VOCAB = 64     # 100 steps an epoch: the JAX package's train-step bench
+TRAIN_WARM = 2       # untimed steps
+TRAIN_STEPS = 5      # timed steps
+GRADCHECK_LAYERS = 2
+GRADCHECK_B = 2
+GRADCHECK_LOSS_TOL = 2e-2   # |kernel - plain| loss (~16) after 2 bf16 layers
+GRADCHECK_TOL = 5e-2        # |kernel - plain| per LoRA leaf over max|plain|: bf16
+                            # activations through 2 layers, P and dS rounded to
+                            # bf16 in the kernels, in another order in the plain
 
 WORDS = ["man", "woman", "dog", "cat", "runs", "jumps", "sings", "cooks",
          "dances", "rides", "park", "kitchen", "stage", "street", "ball", "car",
@@ -90,35 +118,49 @@ def gpu_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def pairs_visible(key_mask, query_mask):
+    """Causal (query, key) pairs with both masks 1 and the key not after the query."""
+    km = key_mask.bool().cpu().numpy()
+    qm = query_mask.bool().cpu().numpy()
+    return float((np.cumsum(km, axis=1) * qm).sum())
+
+
+def roofline_ms(nbytes, flops):
+    """The least time this card could take: the larger of the bytes over the
+    memory rate and the flops over the bf16 rate, and which one it is."""
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
 def attention_bound_ms(b, s, hq, hkv, d, key_mask, query_mask):
-    """Least time for one causal attention call on this card: each input read
-    once and the output written once, against the FLOPs of the (query, key)
-    pairs these masks leave visible; the larger of the two, and which."""
+    """Bound of one causal attention forward: each input read once and the
+    output written once, against the FLOPs of the visible (query, key) pairs."""
     nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     if key_mask is not None:
         nbytes += 2 * 4 * b * s
-        km = key_mask.bool().cpu().numpy()
-        qm = query_mask.bool().cpu().numpy()
-        pairs = float((np.cumsum(km, axis=1) * qm).sum())
+        pairs = pairs_visible(key_mask, query_mask)
     else:
         pairs = float(b * s * (s + 1) // 2)
-    flops = 4.0 * d * hq * pairs
-    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+    return roofline_ms(nbytes, 4.0 * d * hq * pairs)
 
 
 def phase_build():
     from blim_tpu_torch.kernels import flash_attention as fa
 
     t0 = time.time()
-    report = fa.build()
+    reports = fa.build()              # one nvcc per source, all started together
     secs = time.time() - t0
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    print(f"[build] flash_fwd.cu -> {fa.library_path().name} for sm_90a in {secs:.1f}s"
-          + ("" if report else " (already built)"), flush=True)
-    for ln in ptxas:
-        print(f"[build]   {ln}", flush=True)
+    for name, report in reports.items():
+        print(f"[build] {fa.SOURCES[name].name} -> {fa.library_path(name).name} for sm_90a"
+              + ("" if report else " (already built)"), flush=True)
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"[build]   {ln.strip()}", flush=True)
+    fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
+    print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes()} B, "
+          f"flash_dq {bwd.blim_flash_bwd_smem_bytes(0)} B, "
+          f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1)} B", flush=True)
+    print(f"[build] {len(reports)} sources in {secs:.1f}s", flush=True)
 
 
 def phase_kernels(card):
@@ -199,6 +241,134 @@ def phase_kernels(card):
                           library_ms=lib_ms)
     record["max_abs_err"] = worst
     return record
+
+
+def train_attention_cases():
+    """The train step's attention shapes: VTG (4, 448) with right pads of
+    caption-like lengths, TVG (4, 256) with left pads (the TVG layout)."""
+    import torch
+
+    vtg = torch.ones((4, 448), dtype=torch.int32, device="cuda")
+    for b, pad in enumerate((23, 61, 5, 88)):
+        vtg[b, 448 - pad:] = 0
+    tvg = torch.ones((4, 256), dtype=torch.int32, device="cuda")
+    for b, pad in enumerate((120, 97, 143, 110)):
+        tvg[b, :pad] = 0
+    return [("VTG B=4 S=448 right pads", vtg), ("TVG B=4 S=256 left pads", tvg)]
+
+
+def phase_train_kernels(card):
+    """B1-lse, B3 and B4 against their plain versions at the train step's
+    shapes, in bf16 (fp32 accumulators on both sides), with times."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    hq, hkv, d = 28, 4, 128
+    scale = d ** -0.5
+    records = {}
+    for name, m in train_attention_cases():
+        b, s = m.shape
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
+                                         dtype=torch.bfloat16)
+        q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        rows = m.bool()[:, None, :].expand(b, hq, s)
+        pairs = pairs_visible(m, m)
+        io = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * s   # q, k, v, o + mask
+
+        # B1-lse
+        before = fa.counts()
+        out, lse = fa.flash_attention_lse(q, k, v, key_mask=m, query_mask=m)
+        torch.cuda.synchronize()
+        if fa.launches_lse != before["flash_fwd_lse"] + 1 or fa.launches != before["flash_fwd"]:
+            fail(f"flash_fwd_lse {name}: the wrapper did not launch the lse kernel once")
+        ref, ref_lse = fa.reference_attention_lse(q, k, v, m, m, True, scale)
+        if not (torch.isfinite(out).all() and torch.isfinite(lse[rows]).all()):
+            fail(f"flash_fwd_lse {name}: non-finite output or lse")
+        diff = (out.float() - ref.float()).abs()
+        err_o = diff.max().item()
+        excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+        err_lse = (lse - ref_lse)[rows].abs().max().item()
+        ms = gpu_time_ms(lambda: fa.flash_attention_lse(q, k, v, key_mask=m, query_mask=m))
+        plain_ms = gpu_time_ms(lambda: fa.reference_attention_lse(q, k, v, m, m, True, scale))
+        allowed = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()[None, None] \
+            & m.bool()[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+        lib_ms = gpu_time_ms(sdpa)       # with grad on, the forward also keeps its lse
+        bound_ms, bound_by = roofline_ms(io + 4 * b * hq * s, 4.0 * d * hq * pairs)
+        print(f"[train-kernels] flash_fwd_lse {name}: max|d| out {err_o:.3e} "
+              f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), lse {err_lse:.3e} on query-mask-1 rows "
+              f"(tol {LSE_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+        if excess > ATTN_ATOL or err_lse > LSE_TOL:
+            fail(f"flash_fwd_lse {name}: kernel and plain disagree")
+        rec = records.setdefault("flash_fwd_lse", dict(max_abs_err=0.0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err_o, err_lse)
+        if "VTG" in name:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+
+        # B3 + B4 on the plain forward's O and lse, so both sides read the same inputs
+        before = fa.counts()
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, m, m, ref, ref_lse, dout)
+        torch.cuda.synchronize()
+        if (fa.launches_dq, fa.launches_dkv) != (before["flash_dq"] + 1,
+                                                 before["flash_dkv"] + 1):
+            fail(f"flash_dq/dkv {name}: the wrapper did not launch each kernel once")
+        want = fa.reference_attention_backward(q, k, v, m, m, ref, ref_lse, dout, True, scale)
+        errs = {}
+        for gname, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            if not torch.isfinite(got).all():
+                fail(f"{gname} {name}: non-finite")
+            errs[gname] = ((got.float() - w.float()).abs().max().item(),
+                           w.float().abs().max().item())
+        ms_wrapper = gpu_time_ms(
+            lambda: fa.flash_attention_backward(q, k, v, m, m, ref, ref_lse, dout))
+        plain_bwd = gpu_time_ms(
+            lambda: fa.reference_attention_backward(q, k, v, m, m, ref, ref_lse, dout, True, scale))
+        lib = fa._library("flash_bwd")
+        g = (dout * m[:, :, None, None].to(dout.dtype)).contiguous()
+        delta = (g.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+        km = m.contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ref_lse.data_ptr(),
+                  delta.data_ptr(), km.data_ptr())
+        ms_dq_only = gpu_time_ms(lambda: lib.blim_flash_dq(
+            *common, dq.data_ptr(), b, s, hq, hkv, scale, 1, stream))
+        ms_dkv_only = gpu_time_ms(lambda: lib.blim_flash_dkv(
+            *common, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, scale, 1, stream))
+        out_sdpa = sdpa()
+        do_t = dout.transpose(1, 2)
+        lib_bwd = gpu_time_ms(lambda: torch.autograd.grad(out_sdpa, (qt, kt, vt), do_t,
+                                                          retain_graph=True))
+        stats = 2 * 4 * b * hq * s                                        # lse + delta
+        b_dq, by_dq = roofline_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + stats
+                                  + 4 * b * s, 6.0 * d * hq * pairs)
+        b_dkv, by_dkv = roofline_ms(2 * (2 * b * s * hq * d + 4 * b * s * hkv * d) + stats
+                                    + 4 * b * s, 8.0 * d * hq * pairs)
+        print(f"[train-kernels] flash_dq/flash_dkv {name}: " + ", ".join(
+            f"{gname} max|d| {e:.3e} (max|plain| {mx:.3e})" for gname, (e, mx) in errs.items())
+            + f" (tol {GRAD_TOL} max|plain|); dq kernel {ms_dq_only:.4f} ms (bound {b_dq:.4f}, "
+            f"{by_dq}), dkv kernel {ms_dkv_only:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), "
+            f"wrapper with delta {ms_wrapper:.4f} ms, plain backward {plain_bwd:.4f} ms, "
+            f"sdpa backward (dq+dk+dv) {lib_bwd:.4f} ms [{card}]", flush=True)
+        for gname, (e, mx) in errs.items():
+            if e > GRAD_TOL * mx:
+                fail(f"{gname} {name}: |kernel - plain| {e:.3e} > {GRAD_TOL} x {mx:.3e}")
+        for key, ms_k, b_k, by_k, gnames in (("flash_dq", ms_dq_only, b_dq, by_dq, ("dq",)),
+                                             ("flash_dkv", ms_dkv_only, b_dkv, by_dkv,
+                                              ("dk", "dv"))):
+            rec = records.setdefault(key, dict(max_abs_err=0.0))
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [errs[gn][0] for gn in gnames])
+            if "VTG" in name:
+                # the plain backward and the library backward compute dq, dk and dv together
+                rec.update(ms=ms_k, plain_ms=plain_bwd, bound_ms=b_k, bound_by=by_k,
+                           library_ms=lib_bwd, plain_and_library_cover="dq+dk+dv")
+    return records
 
 
 def make_inputs(cfg, n):
@@ -352,6 +522,198 @@ def phase_packed(st, card):
         fail(f"packed vs naive disagree: {err:.3e} / {err_prior:.3e} > {PACKED_TOL}")
 
 
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _slice_layers(tree, n):
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def train_setup(cfg, tok, vtg_layout, seed):
+    """TVG layout, synthetic train batches and video vocabulary from `seed`."""
+    from blim_tpu_torch.data.collate import collate_train_batch
+    from blim_tpu_torch.data.prompts import make_tvg_layout
+
+    tvg_layout = make_tvg_layout(tok, cfg.num_clips, CAPTION_TOKENS)
+    r = np.random.default_rng((SEED, seed))
+
+    def batch(b):
+        feats = r.standard_normal((b, cfg.num_clips, cfg.tokens_per_clip, cfg.mm_hidden_size))
+        return collate_train_batch(make_captions(b, r, CAPTION_TOKENS), feats.astype(np.float32),
+                                   np.arange(b) % 4, tok, "MSRVTT", vtg_layout, tvg_layout)
+
+    vocab = r.standard_normal((TRAIN_VOCAB, cfg.num_clips, cfg.mm_hidden_size)).astype(np.float32)
+    return tvg_layout, batch, vocab
+
+
+def setup_train(flow):
+    """The 7B LoRA train step on the flow's weights, as the JAX package's
+    train-step bench sets it up: a seeded trainable tree on the card, the
+    state, the step, a batch maker, the video vocabulary, the generator."""
+    import torch
+
+    from blim_tpu_torch.engine import train as train_lib
+
+    cfg, params, tok, vtg_layout = flow
+    tvg_layout, batch, vocab = train_setup(cfg, tok, vtg_layout, 7)
+    tcfg = train_lib.TrainConfig(lr=1e-4, warmup_epochs=0.0, epochs=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    trainable = train_lib.init_trainable(
+        gen, cfg, tcfg, visual_head=torch.full((cfg.llm.hidden_size, cfg.mm_hidden_size), 0.02))
+    return dict(state=train_lib.init_train_state(trainable, tcfg, steps_per_epoch=100),
+                step=train_lib.make_train_step(cfg, tcfg, vtg_layout, tvg_layout, device="cuda"),
+                batch=batch, vocab=torch.from_numpy(vocab).cuda(), gen=gen,
+                tvg_layout=tvg_layout)
+
+
+def phase_train(st, card):
+    """The 7B LoRA train step on the card: B = 4, caption budget 96,
+    per-layer recompute, AdamW; launch counts checked against the path."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    cfg, params, tok, vtg_layout = st["flow"]
+    tr = setup_train(st["flow"])
+    state, step, batch, vocab, gen = tr["state"], tr["step"], tr["batch"], tr["vocab"], tr["gen"]
+    tvg_layout = tr["tvg_layout"]
+    llm = params["llm"]
+    frozen_probe = [t.detach().clone() for t in (
+        llm["embed_tokens"]["embedding"][:64], llm["layers"]["q_proj"]["kernel"][0, :64],
+        llm["layers"]["down_proj"]["kernel"][-1, :64], llm["lm_head"]["kernel"][:, :64],
+        params["projector"]["tvg_mlp"]["fc2"]["kernel"][:64], params["visual_head"]["kernel"])]
+    leaves = list(_leaves(state.trainable))
+    before = [t.detach().clone() for t in leaves]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    for _ in range(TRAIN_WARM):
+        state, m = step(state, params, batch(TRAIN_B), vocab, gen)
+        if not np.isfinite(float(m["loss"])):
+            fail("train: non-finite loss in an untimed step")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    batches = [batch(TRAIN_B) for _ in range(TRAIN_STEPS)]   # host collation outside the clock
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    times, metrics = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, params, b, vocab, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = fa.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg.llm.num_hidden_layers
+    expected = {"flash_fwd": 0, "flash_fwd_lse": TRAIN_STEPS * (1 + 1) * layers * 2,
+                "flash_dq": TRAIN_STEPS * layers * 2, "flash_dkv": TRAIN_STEPS * layers * 2}
+    ms = [t * 1e3 for t in times]
+    print(f"[train] Qwen2-7B LoRA train step, B={TRAIN_B}, VTG seq {vtg_layout.seq_len} + TVG seq "
+          f"{tvg_layout.seq_len}, remat: {TRAIN_WARM} untimed steps in {warm_s:.2f}s, then "
+          f"{TRAIN_STEPS} timed: {np.mean(ms):.1f} ms/step mean, {np.min(ms):.1f} min, "
+          f"{np.max(ms):.1f} max; peak {peak_gb:.2f} GiB; loss "
+          + ", ".join(f"{x['loss']:.4f}" for x in metrics) + "; grad_norm "
+          + ", ".join(f"{x['grad_norm']:.4e}" for x in metrics)
+          + f"; launches {counts} (expected {expected}) [{card}]", flush=True)
+    for x in metrics:
+        if not all(np.isfinite(v) for v in x.values()):
+            fail(f"train: non-finite metrics {x} (a finite grad_norm means finite gradients)")
+    if counts != expected:
+        fail(f"train: launches {counts} != expected {expected}")
+    after = (llm["embed_tokens"]["embedding"][:64], llm["layers"]["q_proj"]["kernel"][0, :64],
+             llm["layers"]["down_proj"]["kernel"][-1, :64], llm["lm_head"]["kernel"][:, :64],
+             params["projector"]["tvg_mlp"]["fc2"]["kernel"][:64], params["visual_head"]["kernel"])
+    if not all(torch.equal(a, b) for a, b in zip(frozen_probe, after)):
+        fail("train: a frozen weight changed")
+    changed = sum(not torch.equal(a, b.detach()) for a, b in zip(before, leaves))
+    if changed != len(leaves):
+        fail(f"train: only {changed} of {len(leaves)} trainable leaves changed")
+    print(f"[train] frozen probes unchanged, {changed}/{len(leaves)} trainable leaves changed, "
+          f"{state.applied} updates applied", flush=True)
+    return dict(counts=counts, ms=float(np.mean(ms)))
+
+
+def phase_gradcheck(st, card):
+    """Loss and LoRA gradients through the kernels against the same step
+    through the plain attention, swapped into qwen2's attention call here
+    only: reference_attention in fp32 under autograd, output cast back to
+    bf16. In bf16, autograd would round dP to bf16 before dP - delta
+    cancels, a coarser yardstick than the kernels, which keep dP in fp32."""
+    import dataclasses
+
+    import torch
+
+    from blim_tpu_torch.engine import train as train_lib
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import qwen2
+
+    cfg, params, tok, vtg_layout = st["flow"]
+    small = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=GRADCHECK_LAYERS))
+    frozen = dict(params, llm=dict(params["llm"], layers=_slice_layers(
+        params["llm"]["layers"], GRADCHECK_LAYERS)))
+    tvg_layout, batch, vocab = train_setup(cfg, tok, vtg_layout, 11)
+    tcfg = train_lib.TrainConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    trainable = train_lib.init_trainable(
+        gen, small, tcfg, visual_head=torch.full((cfg.llm.hidden_size, cfg.mm_hidden_size), 0.02))
+    with torch.no_grad():          # LoRA B non-zero, so A gets a gradient too
+        for name, t in _named_leaves(trainable):
+            if name.endswith("b"):
+                t.normal_(0.0, 0.01, generator=gen)
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch(GRADCHECK_B).items()}
+    b["video"] = b["video"].to(params["projector"]["mlp"]["fc1"]["kernel"].dtype)
+    vocab = torch.from_numpy(vocab).cuda()
+    ws, wl = vtg_layout.label_window
+    geoms = ((vtg_layout.video_start, ws, wl),
+             (tvg_layout.video_start, int(tvg_layout.gather_positions[0])))
+    names, leaves = zip(*_named_leaves(trainable))
+
+    def loss_and_grads():
+        loss, _ = train_lib.loss_fn(trainable, frozen, small, b, vocab, *geoms, tcfg.lora.scale)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    fa.reset_counts()
+    k_loss, k_grads = loss_and_grads()
+    k_counts = fa.counts()
+    kernel_mha = qwen2.multi_head_attention
+    qwen2.multi_head_attention = lambda q, k, v, *, key_mask, query_mask, causal, scale, window: \
+        reference_attention(q.float(), k.float(), v.float(), key_mask, query_mask, causal, scale,
+                            window).to(q.dtype)
+    try:
+        fa.reset_counts()
+        p_loss, p_grads = loss_and_grads()
+        p_counts = fa.counts()
+    finally:
+        qwen2.multi_head_attention = kernel_mha
+    worst = max(((g - w).abs().max().item() / w.abs().max().item(), n)
+                for n, g, w in zip(names, k_grads, p_grads))
+    worst_norm = max(((g - w).norm().item() / w.norm().item(), n)
+                     for n, g, w in zip(names, k_grads, p_grads))
+    expected = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * GRADCHECK_LAYERS,
+                "flash_dq": 2 * GRADCHECK_LAYERS, "flash_dkv": 2 * GRADCHECK_LAYERS}
+    print(f"[gradcheck] {GRADCHECK_LAYERS} layers at full width, B={GRADCHECK_B}: loss kernel "
+          f"{k_loss:.5f} vs plain {p_loss:.5f} (tol {GRADCHECK_LOSS_TOL}); worst LoRA leaf "
+          f"max|d|/max|plain| {worst[0]:.3e} at {worst[1]} (tol {GRADCHECK_TOL}), worst "
+          f"|d|/|plain| (Frobenius) {worst_norm[0]:.3e} at {worst_norm[1]}, over "
+          f"{len(names)} leaves; kernel launches {k_counts}, plain {p_counts} [{card}]", flush=True)
+    if not (np.isfinite(k_loss) and all(torch.isfinite(g).all() for g in k_grads)):
+        fail("gradcheck: non-finite loss or gradient through the kernels")
+    if k_counts != expected or any(p_counts.values()):
+        fail(f"gradcheck: launches {k_counts} / {p_counts}, expected {expected} / none")
+    if abs(k_loss - p_loss) > GRADCHECK_LOSS_TOL or worst[0] > GRADCHECK_TOL:
+        fail("gradcheck: kernels and plain attention disagree")
+
+
 def main():
     if not (ROOT / "blim_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"the blim_tpu_torch package is not next to {Path(__file__).name}")
@@ -370,15 +732,23 @@ def main():
     record = phase_kernels(card)
     st = phase_slice(card)
     phase_packed(st, card)
+    t0 = time.time()
+    train_records = phase_train_kernels(card)
+    train = phase_train(st, card)
+    phase_gradcheck(st, card)
+    print(f"[time] phases 5-7 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
+          flush=True)
 
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "blim_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "blim_tpu/kernels/flash_attention.py:42",
-        "launches": st["launches"],
-        **record,
-    }]
+    src = "blim_tpu_torch/kernels/csrc/"
+    ref = "blim_tpu/kernels/flash_attention.py:"
+    kernels = [{"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+                "replaces": ref + "42", "launches": st["launches"], **record}]
+    for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
+                               ("flash_dq", "flash_bwd.cu", "195"),
+                               ("flash_dkv", "flash_bwd.cu", "252")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": ref + line, "launches": train["counts"][name],
+                        **train_records[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -114,3 +114,44 @@ def test_cuda_without_gpu_raises(monkeypatch, jax_params):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         RerankEngine(params, cfg, layout)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_trainable():
+    from blim_tpu.engine import train as jtrain
+
+    cfg = jax_tiny_config(vocab_size=152064)
+    tree = jtrain.init_trainable(jax.random.key(1), cfg, jtrain.TrainConfig(),
+                                 visual_head=jax.numpy.full((64, 32), 0.02))
+    tree = jax.tree_util.tree_map(np.array, tree)
+    rng = np.random.default_rng(0)
+    for name, leaf in _flat(tree).items():
+        leaf[...] = rng.standard_normal(leaf.shape).astype(np.float32)   # exact in fp32 only
+    return tree
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_and_visual_head_stay_fp32_in_the_weight_bridge(jax_trainable, dtype):
+    t = _flat(convert.params_from_numpy(jax_trainable, dtype, "cpu"))
+    assert len(t) == 19
+    for k, v in t.items():
+        assert v.dtype == torch.float32, k
+
+
+def test_trainable_round_trip_is_exact(jax_trainable):
+    t = convert.trainable_from_numpy(jax_trainable, "cpu")
+    flat = _flat(t)
+    orig = _flat(jax_trainable)
+    assert flat.keys() == orig.keys()
+    for k, v in flat.items():
+        assert v.dtype == torch.float32 and v.requires_grad and v.is_leaf, k
+        assert tuple(v.shape) == orig[k].shape, k
+    back = _flat(convert.params_to_numpy(t))
+    for k in orig:
+        assert back[k].dtype == np.float32
+        np.testing.assert_array_equal(back[k], orig[k], err_msg=k)
+    grads = _flat(convert.grads_to_numpy(t))   # no backward yet: zeros of each shape
+    for k in orig:
+        assert grads[k].shape == orig[k].shape and not grads[k].any()
+    back["visual_head/kernel"][0, 0] += 1.0   # a copy: the tensor keeps its value
+    assert float(t["visual_head"]["kernel"].detach()[0, 0]) == orig["visual_head/kernel"][0, 0]

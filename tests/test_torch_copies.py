@@ -1,6 +1,7 @@
 """The port keeps its own copies of the JAX package's JAX-free helpers
-(configs, tokenizer, prompt layouts, pack schedulers, recall and fusion).
-Each copy is pinned equal to its original here."""
+(configs, tokenizer, prompt layouts, train collation and loader, pack
+schedulers, recall and fusion). Each copy is pinned equal to its original
+here."""
 
 import dataclasses
 
@@ -9,7 +10,9 @@ import pytest
 
 from blim_tpu.core import config as jconfig
 from blim_tpu.core import constants as jconst
+from blim_tpu.data import collate as jcollate
 from blim_tpu.data import conversation as jconv
+from blim_tpu.data import datasets as jdatasets
 from blim_tpu.data import prompts as jprompts
 from blim_tpu.data.tokenization import ByteFallbackTokenizer as JTokenizer
 from blim_tpu.engine import rerank as jrerank
@@ -18,7 +21,9 @@ from blim_tpu.scoring import recall as jrecall
 
 from blim_tpu_torch.core import config as tconfig
 from blim_tpu_torch.core import constants as tconst
+from blim_tpu_torch.data import collate as tcollate
 from blim_tpu_torch.data import conversation as tconv
+from blim_tpu_torch.data import datasets as tdatasets
 from blim_tpu_torch.data import prompts as tprompts
 from blim_tpu_torch.data.tokenization import ByteFallbackTokenizer as TTokenizer
 from blim_tpu_torch.engine import rerank as trerank
@@ -194,3 +199,70 @@ def test_all_scoring_results_copy_matches(cpn, has_tvg):
     for a, b in zip(tfusion.blim_ensemble(t2v, v2t, (0.3, 0.8), (0.5, 0.4, 0.8, 0.6), has_tvg),
                     jfusion.blim_ensemble(t2v, v2t, (0.3, 0.8), (0.5, 0.4, 0.8, 0.6), has_tvg)):
         np.testing.assert_array_equal(a, b)
+
+
+LONG = "word " * 200  # overflows the TVG budget: the caption is cut, the header tail kept
+
+
+@pytest.mark.parametrize("num_clips,budget", [(4, 96), (4, 32), (8, 64)])
+def test_tvg_layout_copy_matches(num_clips, budget):
+    jt, tt = JTokenizer(), TTokenizer()
+    j = jprompts.make_tvg_layout(jt, num_clips, max_caption_tokens=budget)
+    t = tprompts.make_tvg_layout(tt, num_clips, max_caption_tokens=budget)
+    for f in ("terminator_ids", "tvg_prefix_length", "num_clips", "seq_len", "pad_id",
+              "video_start", "prefix_len", "suffix_width"):
+        assert getattr(t, f) == getattr(j, f), f
+    np.testing.assert_array_equal(t.gather_positions, j.gather_positions)
+    for cap in CAPTIONS + [LONG]:
+        te, je = t.encode_caption(cap, tt), j.encode_caption(cap, jt)
+        assert te.keys() == je.keys()
+        for key in je:
+            np.testing.assert_array_equal(te[key], je[key], err_msg=key)
+
+
+def test_tvg_prompt_helpers_copy_match():
+    assert tprompts.TVG_INSTRUCTION == jprompts.TVG_INSTRUCTION
+    for cap in CAPTIONS:
+        assert tprompts.tvg_prompt_strings(cap) == jprompts.tvg_prompt_strings(cap)
+    assert tprompts.get_tvg_prefix_length(TTokenizer()) == jprompts.get_tvg_prefix_length(
+        JTokenizer())
+    assert tprompts.get_tvg_prefix_length(TTokenizer(), "short") == \
+        jprompts.get_tvg_prefix_length(JTokenizer(), "short")
+
+
+def test_collate_train_batch_copy_matches():
+    jt, tt = JTokenizer(), TTokenizer()
+    feats = np.random.default_rng(0).standard_normal((5, 4, 8, 6)).astype(np.float32)
+    labels = np.array([3, 1, 4, 1, 0])
+    out = {}
+    for name, mod, pm, tok in (("j", jcollate, jprompts, jt), ("t", tcollate, tprompts, tt)):
+        vl = pm.make_vtg_layout(tok, "DiDeMo", 32, max_caption_tokens=24)
+        tl = pm.make_tvg_layout(tok, 4, max_caption_tokens=24)
+        out[name] = mod.collate_train_batch(CAPTIONS, feats, labels, tok, "DiDeMo", vl, tl)
+    assert out["t"].keys() == out["j"].keys()
+    for key in out["j"]:
+        np.testing.assert_array_equal(out["t"][key], out["j"][key], err_msg=key)
+        assert out["t"][key].dtype == out["j"][key].dtype, key
+
+
+@pytest.mark.parametrize("n,batch,shards,drop_last", [
+    (10, 4, 1, False), (10, 4, 1, True), (3, 4, 1, False), (11, 3, 2, False), (11, 3, 2, True),
+])
+def test_train_loader_copy_matches(n, batch, shards, drop_last):
+    caps = [f"c{i}" for i in range(n)]
+    vid = np.arange(n) % 3
+    jds = jdatasets.RetrievalDataset("MSRVTT", "train", [str(v) for v in vid], caps, None,
+                                     ["0", "1", "2"], vid)
+    tds = tdatasets.RetrievalDataset("MSRVTT", caps, vid)
+    assert len(tds) == len(jds)
+    for shard in range(shards):
+        j = jdatasets.TrainLoader(jds, batch, seed=5, num_shards=shards, shard=shard,
+                                  drop_last=drop_last)
+        t = tdatasets.TrainLoader(tds, batch, seed=5, num_shards=shards, shard=shard,
+                                  drop_last=drop_last)
+        assert len(t) == len(j)
+        for epoch in (0, 1):
+            jb, tb = list(j.batches(epoch)), list(t.batches(epoch))
+            assert len(tb) == len(jb)
+            for a, b in zip(tb, jb):
+                np.testing.assert_array_equal(a, b)

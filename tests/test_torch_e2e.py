@@ -139,6 +139,12 @@ def _imports(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((REPO / "blim_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    for module in ("adapters/lora", "checkpoints/convert", "data/collate", "data/datasets",
+                   "data/prompts", "engine/train", "engine/loop", "kernels/flash_attention",
+                   "kernels/attention", "models/qwen2", "models/projector",
+                   "models/videochat_flash", "scoring/criteria"):
+        assert f"blim_tpu_torch/{module}.py" in names, module
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
