@@ -15,20 +15,24 @@ gradients back.
 
 The seeded init draws from `torch.Generator`s on the target device with the
 JAX init's shapes and distributions (qwen2.init_params, projector.init_params,
-videochat_flash.init_params). A CUDA generator builds the 7B on the card
-directly in bf16: no fp32 transients and no host-side normals. The numbers
-differ from the JAX init's; tests that compare the two packages bridge the
-JAX tree instead.
+videochat_flash.init_params, umt_vit.init_params). A CUDA generator builds
+the 7B and the ViT-L tower on the card directly in bf16: no host-side
+normals. The numbers differ from the JAX init's; tests that compare the two
+packages bridge the JAX tree instead.
+
+`convert_vision_tower` maps an HF UMT ViT state dict to the JAX package's
+numpy tree (torch Linear (out, in) -> kernel (in, out); Conv3d (out, in, t,
+h, w) -> (t, h, w, in, out)), which `params_from_numpy` then carries across.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
 
-from blim_tpu_torch.core.config import ModelConfig, Qwen2Config
+from blim_tpu_torch.core.config import ModelConfig, Qwen2Config, VisionConfig
 from blim_tpu_torch.core.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -144,3 +148,100 @@ def init_params(config: ModelConfig, seed: int = 0, dtype: torch.dtype = torch.f
     proj = init_projector(config.mm_hidden_size, config.llm.hidden_size, gen, dtype, dev)
     vh = _normal(gen, (config.llm.hidden_size, config.mm_hidden_size), 0.02, torch.float32, dev)
     return {"llm": llm, "projector": proj, "visual_head": {"kernel": vh}}
+
+
+def init_vision_tower(config: VisionConfig, seed: int = 0, dtype: torch.dtype = torch.float32,
+                      device: DeviceLike = "cuda") -> Params:
+    """Random UMT ViT tree {patch_embed, blocks, final_norm} on `device`
+    (umt_vit.init_params): Glorot-normal kernels over the last two axes
+    drawn in fp32, zero biases, unit norm scales; blocks stacked to depth."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = config
+    L, D = c.depth, c.hidden_size
+    I = int(D * c.mlp_ratio)
+
+    def w(*shape):
+        scale = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+        return _normal(gen, shape, scale, torch.float32, dev).to(dtype)
+
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    blocks = {
+        "norm1": {"scale": full(1.0, L, D), "bias": full(0.0, L, D)},
+        "norm2": {"scale": full(1.0, L, D), "bias": full(0.0, L, D)},
+        "qkv": {"kernel": w(L, D, 3 * D)},
+        "q_bias": full(0.0, L, D),
+        "v_bias": full(0.0, L, D),
+        "proj": {"kernel": w(L, D, D), "bias": full(0.0, L, D)},
+        "fc1": {"kernel": w(L, D, I), "bias": full(0.0, L, I)},
+        "fc2": {"kernel": w(L, I, D), "bias": full(0.0, L, D)},
+    }
+    patch = {"kernel": w(c.tubelet_size, c.patch_size, c.patch_size, 3, D),
+             "bias": full(0.0, D)}
+    return {"patch_embed": patch, "blocks": blocks,
+            "final_norm": {"scale": full(1.0, D), "bias": full(0.0, D)}}
+
+
+def _stack(getter: Callable[[int], np.ndarray], n: int) -> np.ndarray:
+    return np.stack([getter(i) for i in range(n)], axis=0)
+
+
+def convert_vision_tower(
+    state_dict: Mapping[str, Any],
+    config: VisionConfig,
+    prefix: str = "model.vision_tower.vision_tower.encoder.",
+) -> Params:
+    """HF UMT ViT state dict -> the stacked numpy tree of models/umt_vit.py
+    (blim_tpu checkpoints.convert_vision_tower)."""
+    L = config.depth
+
+    def sd(name: str) -> np.ndarray:
+        x = state_dict[prefix + name]
+        return params_to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def blk(i: int, name: str) -> np.ndarray:
+        return sd(f"blocks.{i}.{name}")
+
+    layers: Params = {
+        "norm1": {
+            "scale": _stack(lambda i: blk(i, "norm1.weight"), L),
+            "bias": _stack(lambda i: blk(i, "norm1.bias"), L),
+        },
+        "norm2": {
+            "scale": _stack(lambda i: blk(i, "norm2.weight"), L),
+            "bias": _stack(lambda i: blk(i, "norm2.bias"), L),
+        },
+        # qkv is one packed Linear(dim, 3*dim, bias=False) with separate q/v
+        # bias parameters and an implicit zero k bias
+        "qkv": {"kernel": _stack(lambda i: blk(i, "attn.qkv.weight").T, L)},
+        "proj": {
+            "kernel": _stack(lambda i: blk(i, "attn.proj.weight").T, L),
+            "bias": _stack(lambda i: blk(i, "attn.proj.bias"), L),
+        },
+        "fc1": {
+            "kernel": _stack(lambda i: blk(i, "mlp.fc1.weight").T, L),
+            "bias": _stack(lambda i: blk(i, "mlp.fc1.bias"), L),
+        },
+        "fc2": {
+            "kernel": _stack(lambda i: blk(i, "mlp.fc2.weight").T, L),
+            "bias": _stack(lambda i: blk(i, "mlp.fc2.bias"), L),
+        },
+    }
+    if prefix + "blocks.0.attn.q_bias" in state_dict:
+        layers["q_bias"] = _stack(lambda i: blk(i, "attn.q_bias"), L)
+        layers["v_bias"] = _stack(lambda i: blk(i, "attn.v_bias"), L)
+    return {
+        "patch_embed": {
+            # Conv3d weight (out, in, t, h, w) -> (t, h, w, in, out)
+            "kernel": sd("patch_embed.proj.weight").transpose(2, 3, 4, 1, 0),
+            "bias": sd("patch_embed.proj.bias"),
+        },
+        "blocks": layers,
+        "final_norm": {
+            "scale": sd("vision_layernorm.weight"),
+            "bias": sd("vision_layernorm.bias"),
+        },
+    }

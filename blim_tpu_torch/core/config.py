@@ -37,8 +37,11 @@ class Qwen2Config:
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
-    """UMT ViT-L vision tower config (carried for config parity; the port's
-    zero-shot path consumes cached features and runs no ViT)."""
+    """UMT ViT-L vision tower config. res448 => 28x28 = 784 patches a frame,
+    dim 1024, 24 layers (run to `depth`, the truncation by return_idx), 16
+    heads of 64. The extraction path (models/umt_vit.py,
+    pipelines/extract.py) runs the tower; the rerank and train paths read
+    its cached features."""
 
     image_size: int = 448
     patch_size: int = 16
@@ -54,6 +57,19 @@ class VisionConfig:
     final_layer_norm_eps: float = 1e-12
     qkv_bias: bool = True
     init_values: float = 0.0
+
+    @property
+    def patches_per_side(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def patches_per_frame(self) -> int:
+        return self.patches_per_side ** 2
+
+    @property
+    def depth(self) -> int:
+        """Actual number of transformer blocks run (truncated depth)."""
+        return self.num_hidden_layers + self.return_idx + 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,11 +76,15 @@ def multi_head_attention(
     A tensor that needs a gradient (grad mode on and any of q, k, v
     requiring grad) goes through the differentiable flash attention: on CUDA
     the B1-lse forward and the B3/B4 backward kernels, on the CPU their
-    plain versions inside the same autograd Function. Any other CUDA tensor
-    goes to the inference kernel B1, whatever its size (the JAX wrapper's
-    small-problem gate does not apply). The kernels have no sliding window
-    (dormant in BLiM configs), so `window` on a CUDA tensor raises; on a CPU
-    tensor it runs the plain version under autograd."""
+    plain versions inside the same autograd Function. A CUDA tensor at head
+    dim 64 with causal=False and no masks (the UMT ViT) goes to B2; at head
+    dim 64 the backward kernels do not exist yet, so such a tensor that
+    needs a gradient raises. Any other CUDA tensor goes to the inference
+    kernel B1, whatever its size (the JAX wrapper's small-problem gate does
+    not apply), which raises on a head dim other than 128. The kernels have
+    no sliding window (dormant in BLiM configs), so `window` on a CUDA
+    tensor raises; on a CPU tensor it runs the plain version under
+    autograd."""
     from blim_tpu_torch.kernels import flash_attention as fa
 
     needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -89,7 +93,12 @@ def multi_head_attention(
         return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
     if window is not None:
         raise NotImplementedError("sliding-window attention has no CUDA kernel yet")
+    dense64 = q.shape[-1] == fa.DENSE_HEAD_DIM
     if needs_grad:
+        if dense64 and q.device.type != "cpu":
+            raise NotImplementedError("attention at head dim 64 has no backward kernels yet")
         return fa.FlashAttentionFunction.apply(q, k, v, key_mask, query_mask, causal, scale)
+    if dense64 and not causal and key_mask is None and query_mask is None:
+        return fa.flash_attention_dense(q, k, v, scale=scale)
     return fa.flash_attention(q, k, v, key_mask=key_mask, query_mask=query_mask, causal=causal,
                               scale=scale)

@@ -1,13 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full, masked or
 // dense, GQA, bf16 in / fp32 accumulate, with or without the fp32 logsumexp
-// rows that the backward (flash_bwd.cu) reads.
+// rows that the backward (flash_bwd.cu) reads. One kernel template over the
+// head dim: d = 128 (the 7B decoder, every mode) and d = 64 (the UMT ViT,
+// dense only).
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_fwd_kernel` (:42-125),
-// launched by `_flash_forward` -> pl.pallas_call (:178): without lse in the
-// causal masked mode that every prefix forward of the zero-shot rerank path
-// runs (qwen2.forward_collect_kv -> attention.multi_head_attention), and
-// with lse (`lse_ref`, :121-125, via `_vjp_fwd` :434) for every attention
-// call of the LoRA train step.
+// launched by `_flash_forward` -> pl.pallas_call (:178), in three uses:
+//   * B1: without lse in the causal masked mode that every prefix forward of
+//     the zero-shot rerank path runs (qwen2.forward_collect_kv ->
+//     attention.multi_head_attention), d = 128;
+//   * B1-lse: with lse (`lse_ref`, :121-125, via `_vjp_fwd` :434) for every
+//     attention call of the LoRA train step, d = 128;
+//   * B2: dense non-causal, no masks (the `dense` branch :140-144 with the
+//     unrolled KV loop :104-111, picked by the wrapper at :498-510), d = 64:
+//     every attention of the UMT ViT-L tower in feature extraction
+//     (umt_vit.vit_block), q, k, v read in place as strided views of the
+//     packed qkv projection.
 //
 // Semantics, the same as the TPU kernel and the plain version
 // (kernels/attention.py::reference_attention):
@@ -25,18 +33,24 @@
 //     row whose keys are all masked gets -1e30 + log(n) there; the backward
 //     multiplies its dO by the query mask, so that value reaches no gradient.
 //
-// What bounds it on the card. At the main-path shape (B = G packs, S = 341,
-// Hq = 28, Hkv = 4, d = 128, causal) one launch moves ~5.6 MB per pack
-// (q, k, v, o read or written once): ~1.7 us per pack at 3.35 TB/s, against
-// ~0.83 GFLOP per pack, ~0.85 us at 989 TFLOP/s. So the floor is memory,
-// about 1.7 us x G. The work is small next to the 7B's matrix products of
-// the same step.
+// What bounds it on the card.
+//   * B1/B1-lse. At the main-path shape (B = G packs, S = 341, Hq = 28,
+//     Hkv = 4, d = 128, causal) one launch moves ~5.6 MB per pack (q, k, v,
+//     o read or written once): ~1.7 us per pack at 3.35 TB/s, against ~0.83
+//     GFLOP per pack, ~0.85 us at 989 TFLOP/s. So the floor is memory.
+//   * B2 is bound by operations, not bytes. Per clip (S = 3136, 16 heads of
+//     64) it does 4 S^2 d H = 40.3 GFLOP and moves 25.7 MB: at 8 clips one
+//     launch is 0.326 ms of bf16 tensor-core time against 0.061 ms of HBM
+//     time. The design below is far from that floor: its online softmax runs
+//     row by row through shared memory between two WMMA products.
 //
 // Design, first version: right and simple before fast.
 //   * One CTA of 4 warps per (batch, q-head, 64-row q tile). The q tile is
 //     staged in shared memory once; K/V tiles of 64 rows stream through
 //     shared memory, only up to the causal diagonal (tile qi stops at kv
-//     tile qi, since both tiles are 64 rows).
+//     tile qi, since both tiles are 64 rows). B2 at S = 3136 has 49 q tiles
+//     and visits all 49 K/V tiles from each: 49 x 16 heads x clips CTAs
+//     (6,272 at 8 clips, 50,176 at the featurizer's 64), plenty for 132 SMs.
 //   * Tensor cores through WMMA (16x16x16 bf16 fragments, fp32 accumulate):
 //     S = Q K^T per warp for its 16 rows, then O += P V.
 //   * WMMA accumulators hide their row layout, so O lives in shared memory
@@ -45,7 +59,8 @@
 //   * Tensors are read in their (B, S, H, D) layout through strides, 16
 //     bytes per thread per load; the ragged edge is zero-filled and masked,
 //     so any S works without padding copies.
-//   * ~111 KB of dynamic shared memory: two CTAs per SM.
+//   * Dynamic shared memory per CTA: ~111 KB at d = 128 (two CTAs per SM),
+//     ~70 KB at d = 64 (three CTAs per SM).
 // Left for later work: TMA loads, wgmma, a register-resident O, and
 // overlapping the next tile's loads with this tile's math.
 
@@ -59,29 +74,34 @@ namespace {
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;        // head dim
 constexpr int kBQ = 64;        // q rows per CTA
 constexpr int kBK = 64;        // kv rows per tile
 constexpr int kWarps = 4;      // each warp owns 16 q rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdQK = kD + 8;  // bf16 row pitch of the q/k/v tiles
 constexpr int kLdS = kBK + 4;  // fp32 row pitch of the score tile
 constexpr int kLdP = kBK + 8;  // bf16 row pitch of the probability tile
-constexpr int kLdO = kD + 4;   // fp32 row pitch of the output accumulator
 constexpr float kNegInf = -1e30f;
+
+// Row pitches that depend on the head dim kD.
+template <int kD>
+struct Pitch {
+  static constexpr int qk = kD + 8;  // bf16 row pitch of the q/k/v tiles
+  static constexpr int o = kD + 4;   // fp32 row pitch of the output accumulator
+};
 
 static_assert(kBQ == kBK, "the causal tile count assumes square tiles");
 static_assert(kBQ == 16 * kWarps, "each warp owns 16 q rows");
 
 // Every array's byte size is a multiple of 32, so each starts 32-byte
 // aligned, as WMMA loads and stores require.
+template <int kD>
 struct __align__(128) Smem {
-  bf16 q[kBQ * kLdQK];
-  bf16 k[kBK * kLdQK];
-  bf16 v[kBK * kLdQK];
+  bf16 q[kBQ * Pitch<kD>::qk];
+  bf16 k[kBK * Pitch<kD>::qk];
+  bf16 v[kBK * Pitch<kD>::qk];
   float s[kBQ * kLdS];
   bf16 p[kBQ * kLdP];
-  float o[kBQ * kLdO];
+  float o[kBQ * Pitch<kD>::o];
   float m[kBQ];
   float l[kBQ];
   float alpha[kBQ];
@@ -122,9 +142,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Rows [row0, row0 + 64) of one head into a pitched shared tile, 16 bytes a
 // thread; rows at or beyond seq_len become zeros.
+template <int kD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long row_stride,
                                           int row0, int seq_len) {
   constexpr int kChunks = kD / 8;
+  constexpr int kLdQK = Pitch<kD>::qk;
   for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
@@ -136,10 +158,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long
   }
 }
 
-template <bool kMasked>
+template <int kD, bool kMasked>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+  constexpr int kLdQK = Pitch<kD>::qk;
+  constexpr int kLdO = Pitch<kD>::o;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
 
   const int q_tile = blockIdx.x;
   const int h = blockIdx.y;
@@ -156,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
 
-  load_tile(sm.q, qb, p.q_ss, q0, S);
+  load_tile<kD>(sm.q, qb, p.q_ss, q0, S);
   for (int i = tid; i < kBQ * kLdO; i += kThreads) sm.o[i] = 0.f;
   if (tid < kBQ) {
     sm.m[tid] = kNegInf;
@@ -169,8 +193,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   for (int kt = 0; kt < n_iter; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile(sm.k, kb, p.k_ss, k0, S);
-    load_tile(sm.v, vb, p.v_ss, k0, S);
+    load_tile<kD>(sm.k, kb, p.k_ss, k0, S);
+    load_tile<kD>(sm.v, vb, p.v_ss, k0, S);
     if (kMasked && tid < kBK) {
       sm.kmask[tid] = (k0 + tid < S) ? p.key_mask[b * p.mask_sb + k0 + tid] : 0;
     }
@@ -278,18 +302,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 }
 
+template <int kD, bool kMasked>
+cudaError_t launch(const Params& p, dim3 grid, cudaStream_t st) {
+  const size_t smem = sizeof(Smem<kD>);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kD, kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<kD, kMasked><<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound from Python with ctypes. Pointers are device
-// pointers of bf16 (B, S, H, 128) tensors whose last dim is contiguous and
-// whose other strides are multiples of 8 elements; masks are int32 (B, S)
-// with unit stride along S, both null for the dense variant. `lse` is null
-// (inference) or fp32 (B, Hq, S) with unit stride along S. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// pointers of bf16 (B, S, H, head_dim) tensors whose last dim is contiguous
+// and whose other strides are multiples of 8 elements; masks are int32
+// (B, S) with unit stride along S, both null for the dense variant. `lse` is
+// null (inference) or fp32 (B, Hq, S) with unit stride along S. head_dim 128
+// takes every mode; head_dim 64 only the dense inference mode (no masks, no
+// lse). Launches on `stream` and returns cudaGetLastError() (0 on success),
+// or cudaErrorInvalidValue for a mode that has no instantiation.
 extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               const int* key_mask, const int* query_mask, void* out,
                               float* lse, long long lse_sb, long long lse_sh,
                               int batch, int seq_len, int num_q_heads, int num_kv_heads,
+                              int head_dim,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh,
@@ -316,25 +353,22 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
 
   const dim3 grid((seq_len + kBQ - 1) / kBQ, num_q_heads, batch);
-  const size_t smem = sizeof(Smem);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (key_mask != nullptr) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<true><<<grid, kThreads, smem, st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<false><<<grid, kThreads, smem, st>>>(p);
+  const bool masked = key_mask != nullptr;
+  if (head_dim == 128) {
+    return (int)(masked ? launch<128, true>(p, grid, st) : launch<128, false>(p, grid, st));
   }
-  return (int)cudaGetLastError();
+  if (head_dim == 64 && !masked && query_mask == nullptr && lse == nullptr) {
+    return (int)launch<64, false>(p, grid, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a CTA of the kernel uses, in bytes.
-extern "C" int blim_flash_fwd_smem_bytes() { return (int)sizeof(Smem); }
+// Dynamic shared memory a CTA of the kernel uses at this head dim, in bytes
+// (0 for a head dim without an instantiation).
+extern "C" int blim_flash_fwd_smem_bytes(int head_dim) {
+  return head_dim == 128 ? (int)sizeof(Smem<128>) : head_dim == 64 ? (int)sizeof(Smem<64>) : 0;
+}
 
 extern "C" const char* blim_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

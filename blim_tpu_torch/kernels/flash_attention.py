@@ -2,8 +2,9 @@
 (csrc/flash_fwd.cu, csrc/flash_bwd.cu), their wrappers, their plain PyTorch
 versions and the autograd Function that joins them. Port of
 blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse (B1, the
-zero-shot prefix forwards) and with lse (B1-lse, `_vjp_fwd`), `_dq_kernel`
-(B3), `_dkv_kernel` (B4), and the custom VJP `_flash_attention`.
+zero-shot prefix forwards, d = 128), with lse (B1-lse, `_vjp_fwd`), and in
+its dense non-causal mode at d = 64 (B2, every attention of the UMT ViT),
+`_dq_kernel` (B3), `_dkv_kernel` (B4), and the custom VJP `_flash_attention`.
 
 Build. At first use a wrapper compiles its source with nvcc for sm_90a into
 a shared library with plain C entry points and loads it with ctypes. Each
@@ -13,10 +14,12 @@ sources at once, one nvcc each. A failed build raises: there is no fallback
 to the plain version on a CUDA tensor.
 
 Dispatch. A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises. The counters count kernel launches and nothing else:
-`launches` (B1, inference), `launches_lse` (B1-lse), `launches_dq` (B3) and
-`launches_dkv` (B4). Callers reset them to 0 to check that a path went
-through the kernels.
+the kernel or raises. The head dims the kernels take are those flash_fwd.cu
+instantiates: 128 for B1, B1-lse, B3 and B4, 64 for B2; any other raises.
+The counters count kernel launches and nothing else: `launches` (B1,
+inference), `launches_lse` (B1-lse), `launches_dense` (B2), `launches_dq`
+(B3) and `launches_dkv` (B4). Callers reset them to 0 to check that a path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,23 +43,26 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIM = 128
+HEAD_DIM = 128        # B1, B1-lse, B3, B4 (the 7B decoder)
+DENSE_HEAD_DIM = 64   # B2 (the UMT ViT-L: hidden 1024 over 16 heads)
 
 launches = 0          # B1 (no lse) launches since the caller last reset it
 launches_lse = 0      # B1-lse launches
+launches_dense = 0    # B2 launches
 launches_dq = 0       # B3 launches
 launches_dkv = 0      # B4 launches
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_counts() -> None:
-    global launches, launches_lse, launches_dq, launches_dkv
-    launches = launches_lse = launches_dq = launches_dkv = 0
+    global launches, launches_lse, launches_dense, launches_dq, launches_dkv
+    launches = launches_lse = launches_dense = launches_dq = launches_dkv = 0
 
 
 def counts() -> Dict[str, int]:
     return {"flash_fwd": launches, "flash_fwd_lse": launches_lse,
-            "flash_dq": launches_dq, "flash_dkv": launches_dkv}
+            "flash_fwd_dense": launches_dense, "flash_dq": launches_dq,
+            "flash_dkv": launches_dkv}
 
 
 def _nvcc() -> str:
@@ -113,9 +119,11 @@ def _library(name: str) -> ctypes.CDLL:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         if name == "flash_fwd":
             lib.blim_flash_fwd.argtypes = (
-                [ptr] * 7 + [i64] * 2 + [i32] * 4 + [i64] * 13 + [f32, i32, ptr]
+                [ptr] * 7 + [i64] * 2 + [i32] * 5 + [i64] * 13 + [f32, i32, ptr]
             )
             lib.blim_flash_fwd.restype = i32
+            lib.blim_flash_fwd_smem_bytes.argtypes = [i32]
+            lib.blim_flash_fwd_smem_bytes.restype = i32
             lib.blim_cuda_error_string.argtypes = [i32]
             lib.blim_cuda_error_string.restype = ctypes.c_char_p
         else:
@@ -134,13 +142,14 @@ def _raise_on(rc: int, what: str, error_string) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({error_string(rc).decode()})")
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_operand(name: str, t: torch.Tensor, device: torch.device,
+                   head_dim: int = HEAD_DIM) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} must be (B, S, H, {HEAD_DIM}), got {tuple(t.shape)}")
+    if t.dim() != 4 or t.shape[-1] != head_dim:
+        raise ValueError(f"{name} must be (B, S, H, {head_dim}), got {tuple(t.shape)}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}'s last dimension must be contiguous")
     if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
@@ -252,11 +261,12 @@ def reference_attention_backward(
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool):
-    global launches, launches_lse
+def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool,
+                head_dim: int = HEAD_DIM):
+    """One launch of flash_fwd.cu; the caller counts it."""
     dev = _cuda_device(q, "flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, dev)
+        _check_operand(name, t, dev, head_dim)
     _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -273,17 +283,13 @@ def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if dense else km.data_ptr(), None if dense else qm.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), hq * s, s,
-        b, s, hq, k.shape[2],
+        b, s, hq, k.shape[2], head_dim,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         0 if dense else km.stride(0),
         float(scale), int(bool(causal)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "flash_fwd", lib.blim_cuda_error_string)
-    if with_lse:
-        launches_lse += 1
-    else:
-        launches += 1
     return out, lse
 
 
@@ -302,22 +308,46 @@ def flash_attention(
 
     Both masks None selects the dense variant, which loads no mask; one mask
     alone is paired with an all-ones other, as in the JAX wrapper."""
+    global launches
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention(q, k, v, key_mask, query_mask, causal, scale)
-    return _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=False)[0]
+    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=False)[0]
+    launches += 1
+    return out
 
 
 def flash_attention_lse(q, k, v, *, key_mask=None, query_mask=None, causal=True,
                         scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1-lse: flash_attention's output and the fp32 logsumexp rows (B, Hq, S),
     written for rows < S."""
+    global launches_lse
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention_lse(q, k, v, key_mask, query_mask, causal, scale)
-    return _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True)
+    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True)
+    launches_lse += 1
+    return out
+
+
+def flash_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """B2, inference: full (non-causal) attention without masks at head dim
+    64, the UMT ViT's. q (B,S,Hq,64); k,v (B,S,Hkv,64) bf16 -> (B,S,Hq,64).
+    The operands may be strided views (the ViT passes slices of its packed
+    qkv projection, read in place). A CPU tensor takes the plain version,
+    reference_attention(causal=False) with no masks."""
+    global launches_dense
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, None, None, False, scale)
+    out = _launch_fwd(q, k, v, None, None, False, scale, with_lse=False,
+                      head_dim=DENSE_HEAD_DIM)[0]
+    launches_dense += 1
+    return out
 
 
 def flash_attention_backward(

@@ -1,14 +1,23 @@
-"""Projector MLPs (port of blim_tpu/models/projector.py without ToMe).
+"""ToMe token compression and the projector MLPs (port of
+blim_tpu/models/projector.py).
 
-Cached features are post-ToMe, so the port needs only the two projections:
-`mlp` for the VTG direction (every token) and `tvg_mlp` for the TVG
-direction (one token per clip). ToMe merging joins the port with
-extraction.
+ToMe (bipartite soft matching, size-weighted averaging) runs in feature
+extraction: the vision tower's clip tokens are merged down to
+tokens_per_frame x local_frames before they are cached. The merge schedule
+depends on shapes only, so each round is a fixed sequence of tensor ops: a
+similarity matmul, a max, a stable descending argsort (JAX's argsort of the
+negated keys is stable), gathers and one index_add_. ToMe runs in x's dtype
+(bf16 on the card, as in the JAX package); on CUDA index_add_ is atomic, so
+the order of the bf16 sums into a destination token, and so its last bit,
+can change from run to run.
+
+The two projections read the cached features: `mlp` for the VTG direction
+(every token) and `tvg_mlp` for the TVG direction (one token per clip).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +25,91 @@ import torch.nn.functional as F
 from blim_tpu_torch.adapters.lora import apply_dense
 
 Params = Dict[str, Any]
+
+
+def merge_schedule(num_tokens: int, target: int) -> List[int]:
+    """Tokens removed per ToMe round: halve until within one round of the
+    target, then remove the remainder."""
+    assert num_tokens > target, f"{num_tokens} should be greater than {target}"
+    r_list: List[int] = []
+    t = num_tokens
+    while t != target:
+        if t - target <= t // 2:
+            r_list.append(t - target)
+            break
+        r_list.append(t // 2)
+        t = t - t // 2
+    return r_list
+
+
+def _bipartite_merge_indices(metric: torch.Tensor,
+                             r: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ToMe merge indices for one round. metric: (B, T, C). Returns (unm_idx
+    (B, Ta-r), src_idx (B, r), dst_idx (B, r)): a = even-position tokens,
+    b = odd-position tokens; the r src tokens of a with the most similar
+    partner in b merge into it, the rest of a stays (unm), in descending
+    order of that similarity."""
+    t = metric.shape[1]
+    r = min(r, t // 2)
+    assert r > 0, r
+
+    metric = metric / (torch.linalg.vector_norm(metric, dim=-1, keepdim=True) + 1e-12)
+    a, b = metric[:, ::2, :], metric[:, 1::2, :]
+    scores = a @ b.transpose(-1, -2)                      # (B, Ta, Tb)
+
+    node_max, node_idx = scores.max(dim=-1)               # first maximum, as jnp.argmax
+    edge_idx = torch.argsort(node_max, dim=-1, descending=True, stable=True)
+
+    src_idx = edge_idx[:, :r]
+    unm_idx = edge_idx[:, r:]
+    dst_idx = torch.gather(node_idx, -1, src_idx)
+    return unm_idx, src_idx, dst_idx
+
+
+def _merge_sum(x: torch.Tensor, unm_idx: torch.Tensor, src_idx: torch.Tensor,
+               dst_idx: torch.Tensor) -> torch.Tensor:
+    """Apply one merge round with sum reduction. x: (B, T, C) ->
+    (B, T - r, C): the unmerged a tokens, then every b token with the src
+    tokens that merged into it added."""
+    src_all, dst_all = x[:, ::2, :], x[:, 1::2, :]
+    bsz, tb, c = dst_all.shape
+
+    def rows(idx):
+        return torch.gather(src_all, 1, idx[..., None].expand(*idx.shape, c))
+
+    unm, moved = rows(unm_idx), rows(src_idx)
+    flat = (dst_idx + tb * torch.arange(bsz, device=x.device)[:, None]).reshape(-1)
+    dst = dst_all.reshape(bsz * tb, c).index_add(0, flat, moved.reshape(-1, c))
+    return torch.cat([unm, dst.reshape(bsz, tb, c)], dim=1)
+
+
+def merge_tokens(x: torch.Tensor, target_num_token: int, num_attention_heads: int) -> torch.Tensor:
+    """ToMe-compress (B, T, C) to (B, target, C) with size-weighted averaging."""
+    b, t, c = x.shape
+    size = torch.ones((b, t, 1), dtype=x.dtype, device=x.device)
+    head_dim = c // num_attention_heads
+
+    for r in merge_schedule(t, target_num_token):
+        metric = x.reshape(b, x.shape[1], num_attention_heads, head_dim).mean(dim=2)
+        unm_idx, src_idx, dst_idx = _bipartite_merge_indices(metric, r)
+        x = _merge_sum(x * size, unm_idx, src_idx, dst_idx)
+        size = _merge_sum(size, unm_idx, src_idx, dst_idx)
+        x = x / size
+    return x
+
+
+def compress_image_tokens(image_features: torch.Tensor, num_attention_heads: int,
+                          target: int = 64) -> torch.Tensor:
+    """Single-image ToMe path: (B, patches, C) -> (B, target, C)."""
+    return merge_tokens(image_features, target, num_attention_heads)
+
+
+def compress_clip_tokens(clip_features: torch.Tensor, tokens_per_frame: int,
+                         local_num_frames: int, num_attention_heads: int) -> torch.Tensor:
+    """Vision-tower output (clips, local_frames * patches, C) -> the
+    ToMe-compressed features that extraction caches (clips,
+    tokens_per_frame * local_frames, C)."""
+    return merge_tokens(clip_features, tokens_per_frame * local_num_frames, num_attention_heads)
 
 
 def mlp_apply(p: Params, x: torch.Tensor, lora: Optional[Params] = None,

@@ -27,7 +27,21 @@ Phases, one line each (all numbers beside the card's name and power limit):
               ones whose launch counts must match the path;
   7. gradcheck  at full width and GRADCHECK_LAYERS layers, the loss and the
               LoRA gradients through the kernels against the same step
-              through the plain attention.
+              through the plain attention;
+  8. vit-kernel  B2 (flash_fwd_dense, d = 64, dense non-causal) against its
+              plain version at VIT_CLIPS clips of the ViT's (clips, 3136, 16,
+              64), q, k, v strided views of one packed qkv tensor; timed like
+              phase 2 (library yardstick: SDPA), and kernel and SDPA again at
+              the featurizer's EXTRACT_B x 4 clips;
+  9. extract  the UMT ViT-L tower at res448, full depth, in bf16 from SEED on
+              the card, with ToMe: the featurizer at EXTRACT_B videos (one
+              untimed batch, EXTRACT_TIMED timed in a pipeline, launches
+              checked); the tower through B2 against the same tower through
+              the plain attention; ToMe on the card against ToMe on the CPU
+              on the same fp32 tower output; then the extraction pipeline
+              (run_extraction, device preprocessing) over E2E_VIDEOS synthetic
+              videos of 16 uint8 frames of FRAME_HW, saved through the
+              feature store, with the on-card resize held to the CPU resize.
 Then one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -37,6 +51,7 @@ it fails at once.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -60,6 +75,20 @@ GRAD_TOL = 3e-2      # |kernel - plain| dq, dk, dv over max|plain|: the kernels
                      # and write bf16; the plain version keeps fp32 to the end
 PACKED_TOL = 5e-2    # max |packed - naive| on per-caption mean CE (~12)
                      # after 28 bf16 layers computed in a different order
+TOWER_TOL = 5e-2     # |kernel - plain| / |plain| (Frobenius) of the ViT-L tower
+                     # output: each block's attention differs by about one bf16
+                     # ulp (0.2-0.4%, P and O rounded at other points) and 23
+                     # blocks compound it, ~1% expected; 5x that
+TOME_AGREE = 0.99    # least share of clips whose ToMe output on the card matches
+                     # the CPU's (same fp32 input): a clip agrees when its max
+                     # |d| <= TOME_CLIP_TOL x max|CPU|, i.e. every merge was the
+                     # same (a different merge moves whole tokens)
+TOME_CLIP_TOL = 1e-3
+RESIZE_SHARE = 1e-2  # most values the on-card resize may put 1 grey level off the
+                     # CPU resize (UMTImageProcessor.resize_frames): PIL's
+                     # fixed-point rounding where PIL is installed (+-1 on < 1%,
+                     # tests/test_extract_device_resize.py), else its float64
+                     # two-pass, which fp32 products miss only at near-ties
 
 ITEMS = 256          # queries in the timed run
 WARM_ITEMS = 64      # queries in the untimed run before it
@@ -77,6 +106,13 @@ GRADCHECK_LOSS_TOL = 2e-2   # |kernel - plain| loss (~16) after 2 bf16 layers
 GRADCHECK_TOL = 5e-2        # |kernel - plain| per LoRA leaf over max|plain|: bf16
                             # activations through 2 layers, P and dS rounded to
                             # bf16 in the kernels, in another order in the plain
+
+VIT_CLIPS = 8        # B2's check and record shape: the end-to-end batch, 2 videos x 4 clips
+EXTRACT_B = 16       # featurizer batch in videos (the JAX package's featurizer bench)
+EXTRACT_TIMED = 5    # timed featurizer batches after one untimed
+E2E_VIDEOS = 32      # end-to-end extraction: videos, batch, frames of each video
+E2E_B = 2
+FRAME_HW = (240, 320)   # MSRVTT-like source frames, smaller than 448^2: shipped raw
 
 WORDS = ["man", "woman", "dog", "cat", "runs", "jumps", "sings", "cooks",
          "dances", "rides", "park", "kitchen", "stage", "street", "ball", "car",
@@ -157,7 +193,8 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"[build]   {ln.strip()}", flush=True)
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
-    print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes()} B, "
+    print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
+          f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense), "
           f"flash_dq {bwd.blim_flash_bwd_smem_bytes(0)} B, "
           f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1)} B", flush=True)
     print(f"[build] {len(reports)} sources in {secs:.1f}s", flush=True)
@@ -441,9 +478,10 @@ def phase_slice(card):
     warm_s = run_flow(flow, WARM_ITEMS)[-1]
     print(f"[slice] untimed warm run: {WARM_ITEMS} items in {warm_s:.2f}s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.reset_counts()
     inputs, engine, t2v, v2t, elapsed = run_flow(flow, ITEMS)
     launches = fa.launches
+    others = sum(fa.counts().values()) - launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n = ITEMS
     expected = cfg.llm.num_hidden_layers * engine.prefix_forwards
@@ -455,8 +493,9 @@ def phase_slice(card):
           f"flash_fwd launches {launches} (expected {expected} = {cfg.llm.num_hidden_layers} x "
           f"({engine.prefix_forwards - 1} video-prefix steps + 1 prior prefix)) [{card}]",
           flush=True)
-    if launches != expected or launches == 0:
-        fail(f"flash_fwd launches {launches} != expected {expected}")
+    if launches != expected or launches == 0 or others:
+        fail(f"flash_fwd launches {launches} != expected {expected}, or another kernel "
+             f"launched ({fa.counts()})")
     owned = [
         (v2t["candidate_likelihood"], v_rows, v_cols, "v2t candidate_likelihood"),
         (v2t["candidate_prior"], v_rows, v_cols, "v2t candidate_prior"),
@@ -614,7 +653,8 @@ def phase_train(st, card):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     layers = cfg.llm.num_hidden_layers
     expected = {"flash_fwd": 0, "flash_fwd_lse": TRAIN_STEPS * (1 + 1) * layers * 2,
-                "flash_dq": TRAIN_STEPS * layers * 2, "flash_dkv": TRAIN_STEPS * layers * 2}
+                "flash_fwd_dense": 0, "flash_dq": TRAIN_STEPS * layers * 2,
+                "flash_dkv": TRAIN_STEPS * layers * 2}
     ms = [t * 1e3 for t in times]
     print(f"[train] Qwen2-7B LoRA train step, B={TRAIN_B}, VTG seq {vtg_layout.seq_len} + TVG seq "
           f"{tvg_layout.seq_len}, remat: {TRAIN_WARM} untimed steps in {warm_s:.2f}s, then "
@@ -699,7 +739,7 @@ def phase_gradcheck(st, card):
                 for n, g, w in zip(names, k_grads, p_grads))
     worst_norm = max(((g - w).norm().item() / w.norm().item(), n)
                      for n, g, w in zip(names, k_grads, p_grads))
-    expected = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * GRADCHECK_LAYERS,
+    expected = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * GRADCHECK_LAYERS, "flash_fwd_dense": 0,
                 "flash_dq": 2 * GRADCHECK_LAYERS, "flash_dkv": 2 * GRADCHECK_LAYERS}
     print(f"[gradcheck] {GRADCHECK_LAYERS} layers at full width, B={GRADCHECK_B}: loss kernel "
           f"{k_loss:.5f} vs plain {p_loss:.5f} (tol {GRADCHECK_LOSS_TOL}); worst LoRA leaf "
@@ -712,6 +752,254 @@ def phase_gradcheck(st, card):
         fail(f"gradcheck: launches {k_counts} / {p_counts}, expected {expected} / none")
     if abs(k_loss - p_loss) > GRADCHECK_LOSS_TOL or worst[0] > GRADCHECK_TOL:
         fail("gradcheck: kernels and plain attention disagree")
+
+
+def vit_attention_bound_ms(clips, s, h, d):
+    """Bound of one B2 launch: q, k, v read once and o written once, against
+    4 S^2 d flops per head and clip (QK^T and PV, no pair skipped)."""
+    return roofline_ms(2 * 4 * clips * s * h * d, 4.0 * clips * h * s * s * d)
+
+
+def phase_vit_kernel(card):
+    """B2 against its plain version at the ViT's shapes, with times."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    vcfg = ModelConfig().vision                       # (S, H, d) = (3136, 16, 64)
+    s, h = vcfg.num_frames * vcfg.patches_per_frame, vcfg.num_attention_heads
+    d = vcfg.hidden_size // h
+
+    def packed(clips):
+        qkv = torch.randn((clips, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    q, k, v = packed(VIT_CLIPS)
+    before = fa.counts()
+    out = fa.flash_attention_dense(q, k, v)
+    torch.cuda.synchronize()
+    after = fa.counts()
+    if after != dict(before, flash_fwd_dense=before["flash_fwd_dense"] + 1):
+        fail(f"flash_fwd_dense: the wrapper did not launch B2 once ({before} -> {after})")
+    ref = reference_attention(q, k, v, None, None, False, d ** -0.5)
+    if not torch.isfinite(out).all():
+        fail("flash_fwd_dense: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+    del ref, diff
+    ms = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=10)
+    plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, None, None, False, d ** -0.5),
+                           iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
+    bound_ms, bound_by = vit_attention_bound_ms(VIT_CLIPS, s, h, d)
+    print(f"[vit-kernel] flash_fwd_dense {VIT_CLIPS} clips ({VIT_CLIPS}, {s}, {h}, {d}) strided "
+          f"views of a packed qkv: max|d|={err:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound "
+          f"[{card}]", flush=True)
+    if excess > ATTN_ATOL:
+        fail(f"flash_fwd_dense: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| "
+             f"(max |d| {err:.3e})")
+    record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=lib_ms, max_abs_err=err)
+    del q, k, v, qt, kt, vt, out
+    clips = EXTRACT_B * 4
+    q, k, v = packed(clips)
+    ms_f = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_f = gpu_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5, warmup=1)
+    bound_f, _ = vit_attention_bound_ms(clips, s, h, d)
+    print(f"[vit-kernel] flash_fwd_dense {clips} clips (the featurizer's batch): kernel "
+          f"{ms_f:.4f} ms, sdpa {lib_f:.4f} ms, bound {bound_f:.4f} ms: kernel at "
+          f"{100 * bound_f / ms_f:.1f}% of the bound [{card}]", flush=True)
+    record["featurizer_batch"] = dict(clips=clips, ms=ms_f, library_ms=lib_f, bound_ms=bound_f)
+    return record
+
+
+def synthetic_frames(path):
+    """16 seeded uint8 frames of FRAME_HW for a synthetic video: a random
+    base image drifting sideways, so neighbouring frames differ as in a pan."""
+    i = int(path.rsplit("_", 1)[1])
+    rng = np.random.default_rng((SEED, i))
+    base = rng.integers(0, 256, (FRAME_HW[0], FRAME_HW[1] + 64, 3), dtype=np.uint8)
+    return np.stack([base[:, 4 * t:4 * t + FRAME_HW[1]] for t in range(16)])
+
+
+def phase_extract(card):
+    """The extraction slice at full width on the card."""
+    import tempfile
+
+    import torch
+
+    from blim_tpu_torch.checkpoints.convert import init_vision_tower
+    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.data.features import FeatureStore
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import projector, umt_vit
+    from blim_tpu_torch.pipelines import extract
+
+    cfg = ModelConfig()
+    vcfg = cfg.vision
+    depth = vcfg.depth
+    t0 = time.time()
+    vit = init_vision_tower(vcfg, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(vit))
+    print(f"[extract] UMT ViT-L res{vcfg.image_size}: {depth} blocks, hidden {vcfg.hidden_size}, "
+          f"{vcfg.num_attention_heads} heads of {vcfg.hidden_size // vcfg.num_attention_heads}, "
+          f"{vcfg.num_frames * vcfg.patches_per_frame} tokens a clip, {n_params / 1e6:.1f}M "
+          f"params in bf16, seeded init on the card in {time.time() - t0:.2f}s", flush=True)
+
+    # featurizer: one untimed batch, then EXTRACT_TIMED in a pipeline
+    featurize = extract.make_featurizer(vit, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shape = (EXTRACT_B, cfg.num_clips, cfg.mm_local_num_frames, 3, vcfg.image_size,
+             vcfg.image_size)
+    pix = [torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) * 0.1
+           for _ in range(EXTRACT_TIMED + 1)]
+    featurize(pix.pop()).cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    fa.reset_counts()
+    t = time.perf_counter()
+    outs = [featurize(x) for x in pix]
+    outs[-1].cpu()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    counts = fa.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    vps = EXTRACT_B * EXTRACT_TIMED / elapsed
+    expected = dict({k: 0 for k in counts}, flash_fwd_dense=depth * EXTRACT_TIMED)
+    print(f"[extract] featurizer B={EXTRACT_B} videos ({EXTRACT_B * cfg.num_clips} clips), "
+          f"{EXTRACT_TIMED} batches pipelined: {1e3 * elapsed / EXTRACT_TIMED:.1f} ms/batch, "
+          f"{vps:.3f} videos/s, peak {peak_gb:.2f} GiB ({resident_gb:.2f} GiB of it resident "
+          f"before: weights and the {EXTRACT_TIMED} input batches), launches {counts} (expected "
+          f"{expected}) "
+          f"[{card}]", flush=True)
+    if counts != expected:
+        fail(f"featurizer: launches {counts} != expected {expected}")
+    for o in outs:
+        if o.shape != (EXTRACT_B, cfg.num_clips, cfg.tokens_per_clip, cfg.mm_hidden_size) \
+                or not torch.isfinite(o).all():
+            fail(f"featurizer: output of shape {tuple(o.shape)} or non-finite")
+    del outs, pix
+
+    # the tower through B2 against the same tower through the plain attention
+    pos = torch.from_numpy(np.asarray(umt_vit.build_pos_tables(vcfg)[0], np.float32)).cuda()
+    clips = torch.randn((4 * 4, cfg.mm_local_num_frames, 3, vcfg.image_size, vcfg.image_size),
+                        generator=gen, device="cuda", dtype=torch.bfloat16) * 0.5
+    with torch.inference_mode():
+        fa.reset_counts()
+        kern = umt_vit.encode_clips(vit, clips[:4], pos, vcfg).float()
+        tower_launches = fa.counts()["flash_fwd_dense"]
+        kernel_mha = umt_vit.multi_head_attention
+        umt_vit.multi_head_attention = lambda q, k, v, *, causal, scale: reference_attention(
+            q, k, v, None, None, causal, scale)
+        try:
+            fa.reset_counts()
+            plain = umt_vit.encode_clips(vit, clips[:4], pos, vcfg).float()
+            plain_launches = sum(fa.counts().values())
+        finally:
+            umt_vit.multi_head_attention = kernel_mha
+        tower = umt_vit.encode_clips(vit, clips, pos, vcfg)      # 4 videos, for ToMe
+    d = kern - plain
+    rel_max = (d.abs().max() / plain.abs().max()).item()
+    rel_fro = (d.norm() / plain.norm()).item()
+    print(f"[extract] tower, 1 video (4 clips): B2 vs plain attention max|d|/max|plain| "
+          f"{rel_max:.3e}, |d|/|plain| (Frobenius) {rel_fro:.3e} (tol {TOWER_TOL}); launches "
+          f"{tower_launches} / {plain_launches} (expected {depth} / 0) [{card}]", flush=True)
+    if not torch.isfinite(kern).all() or rel_fro > TOWER_TOL:
+        fail(f"tower: kernel and plain disagree ({rel_fro:.3e} > {TOWER_TOL})")
+    if (tower_launches, plain_launches) != (depth, 0):
+        fail("tower: launch counts do not match the path")
+
+    # ToMe alone: the card against the CPU on the same fp32 tower output
+    feats = tower.float()
+    args = (cfg.tokens_per_frame, cfg.mm_local_num_frames, vcfg.num_attention_heads)
+    t = time.time()
+    on_card = projector.compress_clip_tokens(feats, *args).cpu()
+    on_cpu = projector.compress_clip_tokens(feats.cpu(), *args)
+    per_clip = (on_card - on_cpu).abs().amax(dim=(1, 2))
+    agree = per_clip <= TOME_CLIP_TOL * on_cpu.abs().amax(dim=(1, 2))
+    share = agree.float().mean().item()
+    worst = per_clip[agree].max().item() if agree.any() else float("nan")
+    print(f"[extract] ToMe {projector.merge_schedule(feats.shape[1], cfg.tokens_per_clip)} on "
+          f"{feats.shape[0]} clips, fp32, card vs CPU: {share:.4f} of clips merge alike (tol "
+          f"{TOME_AGREE}), max|d| {worst:.3e} among them ({time.time() - t:.1f}s) [{card}]",
+          flush=True)
+    if share < TOME_AGREE:
+        fail(f"ToMe: only {share:.4f} of clips merge alike on the card and the CPU")
+    del tower, kern, plain, feats, clips
+
+    # end to end: run_extraction with device preprocessing and the feature store
+    proc = umt_vit.UMTImageProcessor(size=(vcfg.image_size,) * 2)
+    n_frames = cfg.num_clips * cfg.mm_local_num_frames
+    paths = [f"synthetic_{i:03d}" for i in range(E2E_VIDEOS)]
+    featurize = extract.make_featurizer(vit, cfg, device="cuda", device_preprocess=True)
+
+    def decode(path):
+        return extract.resize_for_upload(synthetic_frames(path), proc, proc.size)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        store = FeatureStore(out_dir)
+
+        def consume(batch_paths, feats_dev):
+            for path, feat in zip(batch_paths, feats_dev.to(torch.float16).cpu().numpy()):
+                store.save(path, feat)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e2e_resident = torch.cuda.memory_allocated() / 2**30
+        fa.reset_counts()
+        n_ok, e2e_s = extract.run_extraction(
+            paths, decode, featurize, consume, batch_size=E2E_B, clips=cfg.num_clips,
+            local_frames=cfg.mm_local_num_frames, decode_workers=4, log=lambda *a: None)
+        e2e_counts = fa.counts()
+        e2e_peak = torch.cuda.max_memory_allocated() / 2**30
+        files = sorted(os.listdir(out_dir))
+        loaded = [np.load(os.path.join(out_dir, f)) for f in files]
+    calls = -(-E2E_VIDEOS // E2E_B)
+    e2e_expected = dict({k: 0 for k in e2e_counts}, flash_fwd_dense=depth * calls)
+    print(f"[extract] end to end: {n_ok} videos of {n_frames} frames {FRAME_HW[0]}x{FRAME_HW[1]} "
+          f"(shipped raw, resized on the card), B={E2E_B}, 4 decode threads: {e2e_s:.3f}s = "
+          f"{n_ok / e2e_s:.3f} videos/s, peak {e2e_peak:.2f} GiB ({e2e_resident:.2f} GiB of it "
+          f"resident before: the weights), {len(files)} feature files, "
+          f"launches {e2e_counts} (expected {e2e_expected}) [{card}]", flush=True)
+    if n_ok != E2E_VIDEOS or len(files) != E2E_VIDEOS:
+        fail(f"end to end: {n_ok} videos featurized, {len(files)} files written")
+    want = (cfg.num_clips, cfg.tokens_per_clip, cfg.mm_hidden_size)
+    for f, a in zip(files, loaded):
+        if a.shape != want or a.dtype != np.float16 or not np.isfinite(a.astype(np.float32)).all():
+            fail(f"end to end: {f} is {a.dtype} {a.shape}, expected finite float16 {want}")
+    if e2e_counts != e2e_expected:
+        fail(f"end to end: launches {e2e_counts} != expected {e2e_expected}")
+
+    # the on-card resize against the port's CPU resize of the same frames
+    frames = synthetic_frames(paths[0])[:4]
+    on_card = extract.device_resize(torch.from_numpy(frames).cuda().float(), vcfg.image_size)
+    try:
+        import PIL  # noqa: F401
+        yardstick = "PIL"
+    except ImportError:
+        yardstick = "float64 two-pass, no PIL"
+    host = proc.resize_frames(frames).astype(np.int16)
+    off = np.abs(on_card.cpu().numpy().astype(np.int16) - host)
+    share_off = float((off > 0).mean())
+    print(f"[extract] on-card resize {FRAME_HW} -> {vcfg.image_size}^2 vs the CPU resize "
+          f"({yardstick}), 4 "
+          f"frames: max |d| {off.max()} grey levels, {share_off:.2e} of values off (tol 1 level "
+          f"on <= {RESIZE_SHARE}) [{card}]", flush=True)
+    if off.max() > 1 or share_off > RESIZE_SHARE:
+        fail("the on-card resize disagrees with the CPU resize")
+    return dict(launches=e2e_counts["flash_fwd_dense"], featurizer_vps=vps, e2e_vps=n_ok / e2e_s)
 
 
 def main():
@@ -738,17 +1026,26 @@ def main():
     phase_gradcheck(st, card)
     print(f"[time] phases 5-7 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
           flush=True)
+    b1_launches = st["launches"]
+    del st                      # the 7B weights: phases 8-9 measure their own peak memory
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    vit_record = phase_vit_kernel(card)
+    extract_st = phase_extract(card)
+    print(f"[time] phases 8-9 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
 
     src = "blim_tpu_torch/kernels/csrc/"
     ref = "blim_tpu/kernels/flash_attention.py:"
     kernels = [{"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-                "replaces": ref + "42", "launches": st["launches"], **record}]
+                "replaces": ref + "42", "launches": b1_launches, **record}]
     for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
                                ("flash_dq", "flash_bwd.cu", "195"),
                                ("flash_dkv", "flash_bwd.cu", "252")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": ref + line, "launches": train["counts"][name],
                         **train_records[name]})
+    kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
+                    "replaces": ref + "42", "launches": extract_st["launches"], **vit_record})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,9 @@
 """The port keeps its own copies of the JAX package's JAX-free helpers
 (configs, tokenizer, prompt layouts, train collation and loader, pack
 schedulers, recall and fusion). Each copy is pinned equal to its original
-here."""
+here; the extraction slice's copies (the ViT's position tables and resize
+matrices, the image processor, the frame sampling, chunking and the feature
+store) are pinned in tests/test_torch_vit.py and tests/test_torch_extract.py."""
 
 import dataclasses
 
@@ -45,6 +47,18 @@ def test_config_copies_match(make):
     assert t.video_tokens_vtg == j.video_tokens_vtg
     assert t.tokens_per_clip == j.tokens_per_clip
     assert t.llm.num_query_groups == j.llm.num_query_groups
+    for prop in ("patches_per_side", "patches_per_frame", "depth"):
+        assert getattr(t.vision, prop) == getattr(j.vision, prop), prop
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(image_size=224), dict(image_size=64, patch_size=8,
+                                                                   num_hidden_layers=4,
+                                                                   return_idx=-1)])
+def test_vision_config_copy_matches(kw):
+    j, t = jconfig.VisionConfig(**kw), tconfig.VisionConfig(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.patches_per_side, t.patches_per_frame, t.depth) == (
+        j.patches_per_side, j.patches_per_frame, j.depth)
 
 
 def test_constants_match():

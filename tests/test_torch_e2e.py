@@ -137,13 +137,15 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    files = sorted((REPO / "blim_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "blim_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("adapters/lora", "checkpoints/convert", "data/collate", "data/datasets",
-                   "data/prompts", "engine/train", "engine/loop", "kernels/flash_attention",
-                   "kernels/attention", "models/qwen2", "models/projector",
-                   "models/videochat_flash", "scoring/criteria"):
+                   "data/features", "data/prompts", "engine/train", "engine/loop",
+                   "kernels/flash_attention", "kernels/attention", "models/qwen2",
+                   "models/projector", "models/umt_vit", "models/videochat_flash",
+                   "pipelines/extract", "scoring/criteria"):
         assert f"blim_tpu_torch/{module}.py" in names, module
     for f in files:
         for mod in _imports(f):
