@@ -8,7 +8,8 @@
 // launched by `_flash_forward` -> pl.pallas_call (:178), in three uses:
 //   * B1: without lse in the causal masked mode that every prefix forward of
 //     the zero-shot rerank path runs (qwen2.forward_collect_kv ->
-//     attention.multi_head_attention), d = 128;
+//     attention.multi_head_attention), d = 128; the B1-lse instantiation
+//     with the lse store compiled out;
 //   * B1-lse: with lse (`lse_ref`, :121-125, via `_vjp_fwd` :434) for every
 //     attention call of the LoRA train step, d = 128;
 //   * B2: dense non-causal, no masks (the `dense` branch :140-144 with the
@@ -30,298 +31,543 @@
 //   * rows with query_mask == 0 write zeros; rows beyond S are not written;
 //   * with an lse pointer, each row < S also writes m + log(max(l, 1e-30))
 //     in fp32, in the scaled-logit domain, as the TPU kernel's lse_ref. A
-//     row whose keys are all masked gets -1e30 + log(n) there; the backward
-//     multiplies its dO by the query mask, so that value reaches no gradient.
+//     row whose keys are all masked gets about -1e30 + log(n) there (the
+//     masked logit is the power of two nearest -1e30, n the keys its tiles
+//     visited); the backward multiplies its dO by the query mask, so that
+//     value reaches no gradient.
 //
-// What bounds it on the card.
-//   * B1/B1-lse. At the main-path shape (B = G packs, S = 341, Hq = 28,
-//     Hkv = 4, d = 128, causal) one launch moves ~5.6 MB per pack (q, k, v,
-//     o read or written once): ~1.7 us per pack at 3.35 TB/s, against ~0.83
-//     GFLOP per pack, ~0.85 us at 989 TFLOP/s. So the floor is memory.
-//   * B2 is bound by operations, not bytes. Per clip (S = 3136, 16 heads of
-//     64) it does 4 S^2 d H = 40.3 GFLOP and moves 25.7 MB: at 8 clips one
-//     launch is 0.326 ms of bf16 tensor-core time against 0.061 ms of HBM
-//     time. The design below is far from that floor: its online softmax runs
-//     row by row through shared memory between two WMMA products.
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16).
+//   * B1/B1-lse are bound by bytes. At the main-path shapes (G = 4 packs of
+//     S = 341, or the train step's B = 4 of S = 448; Hq 28, Hkv 4, d 128,
+//     causal) one launch moves 6-7 MB (q, k, v, o once, lse, masks): ~2 us
+//     at 3.35 TB/s against ~1 us of tensor-core time. With at most 4 KV
+//     tiles a CTA, what the kernel actually pays is latency: the first
+//     tile's load, then a chain of products and the softmax per tile.
+//   * B2 is bound by operations. Per clip (S = 3136, 16 heads of 64) it
+//     does 4 S^2 d H = 40.3 GFLOP and moves 25.7 MB: at 8 clips one launch
+//     is 0.326 ms of bf16 tensor-core time against 0.061 ms of HBM time. At
+//     d = 64 the softmax's exponentials (S^2 H a clip, 16 a clock per SM)
+//     take as long as the two products, so the softmax has to stay in
+//     registers and overlap the tensor cores.
 //
-// Design, first version: right and simple before fast.
-//   * One CTA of 4 warps per (batch, q-head, 64-row q tile). The q tile is
-//     staged in shared memory once; K/V tiles of 64 rows stream through
-//     shared memory, only up to the causal diagonal (tile qi stops at kv
-//     tile qi, since both tiles are 64 rows). B2 at S = 3136 has 49 q tiles
-//     and visits all 49 K/V tiles from each: 49 x 16 heads x clips CTAs
-//     (6,272 at 8 clips, 50,176 at the featurizer's 64), plenty for 132 SMs.
-//   * Tensor cores through WMMA (16x16x16 bf16 fragments, fp32 accumulate):
-//     S = Q K^T per warp for its 16 rows, then O += P V.
-//   * WMMA accumulators hide their row layout, so O lives in shared memory
-//     in fp32: each tile rescales the warp's O rows by alpha, then loads them
-//     as accumulators, adds P V and stores them back.
-//   * Tensors are read in their (B, S, H, D) layout through strides, 16
-//     bytes per thread per load; the ragged edge is zero-filled and masked,
-//     so any S works without padding copies.
-//   * Dynamic shared memory per CTA: ~111 KB at d = 128 (two CTAs per SM),
-//     ~70 KB at d = 64 (three CTAs per SM).
-// Left for later work: TMA loads, wgmma, a register-resident O, and
-// overlapping the next tile's loads with this tile's math.
+// Design (FlashAttention-3's shape):
+//   * A CTA owns 128 q rows of one (batch, q-head) and runs three
+//     warpgroups: two consumers of 64 rows each and one producer.
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232).
+//   * The producer's first warp loads the q tile once and streams K and V
+//     tiles of 128 rows by TMA (cp.async.bulk.tensor, 4-D maps over
+//     (d, S, H, B) built on the host from the operands' strides, so strided
+//     views such as B2's slices of the packed qkv are read in place) into
+//     a ring of stages (3 at d = 64, 2 at d = 128) guarded by mbarriers: a
+//     full barrier per K and V buffer, an empty barrier that each consumer
+//     warp arrives on when its products have read the stage. Rows beyond S
+//     come back as zeros. In the masked mode the same warp turns the key
+//     mask of each tile into 128 bits in shared memory beside it.
+//   * Tiles are 128B-swizzled, 64 columns (128 B) a box: d = 128 takes two
+//     boxes per tile, stored as two 64-column halves.
+//   * S = Q K^T is wgmma m64n128k16 with Q and K in shared memory (both
+//     K-major). The fp32 scores stay in registers: each thread holds two
+//     rows, whose max and sum need two shuffles within a quad of lanes; the
+//     exponentials are exp2 with scale * log2(e) folded into one FMA.
+//   * P goes to bf16 in registers, already in the A-operand layout of the
+//     next wgmma: O += P V is wgmma m64n64k16 with A from registers and V
+//     from shared memory (MN-major), once per 64-column half of V. O stays
+//     in fp32 registers and is rescaled there; no fp32 tile touches shared
+//     memory.
+//   * Tiles wholly above the causal diagonal are skipped; the diagonal tile,
+//     the ragged last tile and (masked mode) every tile mask by position
+//     and by the key-mask bits; other tiles run without a mask.
+//   * Grid order: dense, the q tiles of one (batch, head) are neighbours so
+//     they share its K/V in L2 (B2: 25 q tiles x 16 heads x clips CTAs);
+//     causal, the heaviest q tiles (most KV tiles) launch first.
+//   * The epilogue divides by l, zeroes masked query rows and writes bf16
+//     pairs straight from registers; with lse, one lane of each quad writes
+//     its two rows' lse.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBQ = 64;        // q rows per CTA
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kWarps = 4;      // each warp owns 16 q rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kLdS = kBK + 4;  // fp32 row pitch of the score tile
-constexpr int kLdP = kBK + 8;  // bf16 row pitch of the probability tile
+constexpr int kBQ = 128;           // q rows per CTA
+constexpr int kBK = 128;           // kv rows per tile
+constexpr int kConsumers = 2;      // consumer warpgroups, 64 q rows each
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;  // (168 - 40) x 128 = (232 - 168) x 256
+constexpr int kConsumerRegs = 232;
 constexpr float kNegInf = -1e30f;
-
-// Row pitches that depend on the head dim kD.
-template <int kD>
-struct Pitch {
-  static constexpr int qk = kD + 8;  // bf16 row pitch of the q/k/v tiles
-  static constexpr int o = kD + 4;   // fp32 row pitch of the output accumulator
-};
+constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kBQ == kBK, "the causal tile count assumes square tiles");
-static_assert(kBQ == 16 * kWarps, "each warp owns 16 q rows");
+static_assert(kBQ == 64 * kConsumers, "each consumer warpgroup owns 64 q rows");
 
-// Every array's byte size is a multiple of 32, so each starts 32-byte
-// aligned, as WMMA loads and stores require.
+// Each operand array is a multiple of 1024 bytes and the struct starts on a
+// 1024-byte boundary, as the 128B swizzle requires.
 template <int kD>
-struct __align__(128) Smem {
-  bf16 q[kBQ * Pitch<kD>::qk];
-  bf16 k[kBK * Pitch<kD>::qk];
-  bf16 v[kBK * Pitch<kD>::qk];
-  float s[kBQ * kLdS];
-  bf16 p[kBQ * kLdP];
-  float o[kBQ * Pitch<kD>::o];
-  float m[kBQ];
-  float l[kBQ];
-  float alpha[kBQ];
-  int kmask[kBK];
+struct Smem {
+  static constexpr int kHalves = kD / 64;            // 64-column (128 B) halves
+  static constexpr int kStages = kD == 64 ? 3 : 2;
+  bf16 q[kHalves][kBQ * 64];
+  bf16 k[kStages][kHalves][kBK * 64];
+  bf16 v[kStages][kHalves][kBK * 64];
+  uint32_t kbits[kStages][kBK / 32];                 // key mask bits per tile
+  uint64_t full_q;
+  uint64_t full_k[kStages];
+  uint64_t full_v[kStages];
+  uint64_t empty[kStages];
 };
 
+template <int kD>
+constexpr int smem_bytes() { return (int)sizeof(Smem<kD>) + 1024; }  // + alignment slack
+
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   const int* key_mask;    // (B, S), row stride mask_sb; null when dense
   const int* query_mask;
-  float* lse;             // (B, Hq, S) with strides lse_sb, lse_sh, unit along S; null = none
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
+  float* lse;             // (B, Hq, S) with strides lse_sb, lse_sh, unit along S
   long long o_sb, o_ss, o_sh;
   long long mask_sb;
   long long lse_sb, lse_sh;
+  int batch;
+  int num_heads;          // Hq
   int seq_len;
   int group;              // Hq / Hkv
   float scale;
   int causal;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
+// ---- PTX helpers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D map (d, S, H, B) into shared memory; completion is
+// counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c_d, int c_s, int c_h, int c_b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c_d), "r"(c_s),
+         "r"(c_h), "r"(c_b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128B-swizzled tile whose rows are
+// 128 B: 8-row groups 1024 B apart (SBO); `lbo` is the leading byte offset.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma registers across
+// the asynchronous window between issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
-
-__device__ __forceinline__ float warp_sum(float x) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
-// Rows [row0, row0 + 64) of one head into a pitched shared tile, 16 bytes a
-// thread; rows at or beyond seq_len become zeros.
-template <int kD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long row_stride,
-                                          int row0, int seq_len) {
-  constexpr int kChunks = kD / 8;
-  constexpr int kLdQK = Pitch<kD>::qk;
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq_len) {
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdQK + c) = val;
-  }
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int kD, bool kMasked>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  constexpr int kLdQK = Pitch<kD>::qk;
-  constexpr int kLdO = Pitch<kD>::o;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-  const int q_tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-  const int q0 = q_tile * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// Accumulator layout of m64nNk16 (fp32): thread t of the warpgroup holds
+// rows r = 16 (t / 32) + (t % 32) / 4 and r + 8; for each 8-column block j,
+// d[4j], d[4j + 1] are (r, 8j + 2 (t % 4) + {0, 1}) and d[4j + 2],
+// d[4j + 3] the same columns of row r + 8.
+
+// D(64 x 128, fp32) (+)= A(64 x 16) B(16 x 128): A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64 x 64, fp32) += A(64 x 16, bf16 registers) B(16 x 64): B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- the kernel ----------------------------------------------------------
+
+template <int kD, bool kMasked, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using Sm = Smem<kD>;
+  constexpr int kHalves = Sm::kHalves;
+  constexpr int kStages = Sm::kStages;
+  constexpr int kTileBytes = kBK * kD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
   const int S = p.seq_len;
-  const int row0 = warp * 16;  // this warp's rows within the tile
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  load_tile<kD>(sm.q, qb, p.q_ss, q0, S);
-  for (int i = tid; i < kBQ * kLdO; i += kThreads) sm.o[i] = 0.f;
-  if (tid < kBQ) {
-    sm.m[tid] = kNegInf;
-    sm.l[tid] = 0.f;
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int heads_batch = p.num_heads * p.batch;
+  int q_tile, bh;
+  if (p.causal) {                      // heaviest q tiles first
+    q_tile = n_q - 1 - (int)(blockIdx.x / heads_batch);
+    bh = blockIdx.x % heads_batch;
+  } else {                             // a (batch, head)'s q tiles side by side
+    q_tile = blockIdx.x % n_q;
+    bh = blockIdx.x / n_q;
   }
+  const int h = bh % p.num_heads;
+  const int b = bh / p.num_heads;
+  const int q0 = q_tile * kBQ;
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int n_iter = p.causal ? min(q_tile + 1, n_kv) : n_kv;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
 
-  const int n_kv_tiles = (S + kBK - 1) / kBK;
-  const int n_iter = p.causal ? min(q_tile + 1, n_kv_tiles) : n_kv_tiles;
-
-  for (int kt = 0; kt < n_iter; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<kD>(sm.k, kb, p.k_ss, k0, S);
-    load_tile<kD>(sm.v, vb, p.v_ss, k0, S);
-    if (kMasked && tid < kBK) {
-      sm.kmask[tid] = (k0 + tid < S) ? p.key_mask[b * p.mask_sb + k0 + tid] : 0;
+  if (tid == 0) {
+    mbar_init(&sm.full_q, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full_k[st], 1);
+      mbar_init(&sm.full_v[st], 1);
+      mbar_init(&sm.empty[st], kConsumers * 4);
     }
-    __syncthreads();
-
-    // scores for this warp's 16 rows: S = Q K^T (K^T read col-major from K)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sm.q + row0 * kLdQK + kk * 16, kLdQK);
-#pragma unroll
-        for (int j = 0; j < kBK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, sm.k + (j * 16) * kLdQK + kk * 16, kLdQK);
-          wmma::mma_sync(acc[j], a, kf, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) {
-        wmma::store_matrix_sync(sm.s + row0 * kLdS + j * 16, acc[j], kLdS, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time, two columns a lane
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = row0 + rr;
-      const int qpos = q0 + r;
-      float x[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        const int kpos = k0 + c;
-        bool vis = kpos < S;
-        if (kMasked) vis = vis && sm.kmask[c] != 0;
-        if (p.causal) vis = vis && kpos <= qpos;
-        x[t] = vis ? sm.s[r * kLdS + c] * p.scale : kNegInf;
-      }
-      const float m_prev = sm.m[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x[0], x[1])));
-      const float p0 = expf(x[0] - m_new);
-      const float p1 = expf(x[1] - m_new);
-      const float row_sum = warp_sum(p0 + p1);
-      sm.p[r * kLdP + lane] = __float2bfloat16(p0);
-      sm.p[r * kLdP + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();  // every lane has read m[r] before lane 0 rewrites it
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sm.alpha[r] = alpha;
-        sm.m[r] = m_new;
-        sm.l[r] = sm.l[r] * alpha + row_sum;
-      }
-      __syncwarp();
-    }
-
-    // rescale this warp's output rows, then O += P V
-    for (int i = lane; i < 16 * kD; i += 32) {
-      const int r = row0 + i / kD;
-      sm.o[r * kLdO + i % kD] *= sm.alpha[r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, sm.o + row0 * kLdO + j * 16, kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, sm.p + row0 * kLdP + kk * 16, kLdP);
-        wmma::load_matrix_sync(vf, sm.v + (kk * 16) * kLdQK + j * 16, kLdQK);
-        wmma::mma_sync(oacc, pf, vf, oacc);
-      }
-      wmma::store_matrix_sync(sm.o + row0 * kLdO + j * 16, oacc, kLdO, wmma::mem_row_major);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // epilogue: O / l, zero masked queries, 8 bf16 (16 bytes) a thread
-  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  constexpr int kChunks = kD / 8;
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int qpos = q0 + r;
-    if (qpos >= S) continue;
-    float keep = 1.f;
-    if (kMasked) keep = p.query_mask[b * p.mask_sb + qpos] != 0 ? 1.f : 0.f;
-    const float inv_l = 1.f / fmaxf(sm.l[r], 1e-30f);
-    const float* src = sm.o + r * kLdO + c;
-    uint4 packed;
-    __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+  if (wg == kConsumers) {
+    // ---- producer: one warp issues every load; the other three idle out
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (tid / 32 == kConsumers * 4) {
+      const int lane = tid % 32;
+      const int kvh = h / p.group;
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full_q, kBQ * kD * 2);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      out2[t] = __floats2bfloat162_rn(src[2 * t] * inv_l * keep, src[2 * t + 1] * inv_l * keep);
+        for (int hf = 0; hf < kHalves; ++hf) tma_load(sm.q[hf], &tm_q, &sm.full_q, 64 * hf, q0, h, b);
+      }
+      for (int kt = 0; kt < n_iter; ++kt) {
+        const int st = kt % kStages;
+        const int k0 = kt * kBK;
+        if (kt >= kStages) mbar_wait(&sm.empty[st], (kt / kStages - 1) & 1);
+        uint32_t words[kBK / 32];
+        if (kMasked) {
+#pragma unroll
+          for (int w = 0; w < kBK / 32; ++w) {
+            const int kpos = k0 + 32 * w + lane;
+            words[w] = __ballot_sync(0xffffffffu,
+                                     kpos < S && p.key_mask[b * p.mask_sb + kpos] != 0);
+          }
+        }
+        if (lane == 0) {
+          if (kMasked) {
+#pragma unroll
+            for (int w = 0; w < kBK / 32; ++w) sm.kbits[st][w] = words[w];
+          }
+          mbar_expect_tx(&sm.full_k[st], kTileBytes);   // also releases the mask bits
+#pragma unroll
+          for (int hf = 0; hf < kHalves; ++hf)
+            tma_load(sm.k[st][hf], &tm_k, &sm.full_k[st], 64 * hf, k0, kvh, b);
+          mbar_expect_tx(&sm.full_v[st], kTileBytes);
+#pragma unroll
+          for (int hf = 0; hf < kHalves; ++hf)
+            tma_load(sm.v[st][hf], &tm_v, &sm.full_v[st], 64 * hf, k0, kvh, b);
+        }
+        __syncwarp();
+      }
     }
-    *reinterpret_cast<uint4*>(ob + (long long)qpos * p.o_ss + c) = packed;
-  }
-  if (p.lse != nullptr && tid < kBQ && q0 + tid < S) {
-    p.lse[b * p.lse_sb + h * p.lse_sh + q0 + tid] = sm.m[tid] + logf(fmaxf(sm.l[tid], 1e-30f));
+  } else {
+    // ---- consumers: 64 q rows each; S, P and O in registers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int t = tid % 128;
+    const int lane = t % 32;
+    const int quad = lane % 4;
+    const int qpos0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;   // this thread's two rows
+    const int qpos1 = qpos0 + 8;
+    const float scale_log2 = p.scale * kLog2e;
+    // The masked logit, about -1e30 in the scaled-logit domain. A power of two, so
+    // that neg * scale_log2 is exact and the FMA below gives a row whose keys are
+    // all masked exponents of exactly 0 (p = 1), not its rounding error.
+    const float neg = ldexpf(-1.f, (int)rintf(log2f(-kNegInf / p.scale)));
+    const uint32_t q_base = smem_u32(sm.q[0]) + wg * 64 * 128;
+
+    float o[kHalves][32];
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
+    }
+    float m0 = neg, m1 = neg;   // running max, unscaled scores
+    float l0 = 0.f, l1 = 0.f;   // this thread's share of the running sums
+
+    mbar_wait(&sm.full_q, 0);
+    for (int kt = 0; kt < n_iter; ++kt) {
+      const int st = kt % kStages;
+      const int parity = (kt / kStages) & 1;
+      const int k0 = kt * kBK;
+
+      // S = Q K^T
+      float s[kBK / 2];
+      mbar_wait(&sm.full_k[st], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint64_t da = smem_desc(q_base + (kk / 4) * kBQ * 128 + (kk % 4) * 32, 16);
+        const uint64_t db = smem_desc(smem_u32(sm.k[st][kk / 4]) + (kk % 4) * 32, 16);
+        wgmma_ss_n128(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // masks: key bits, the ragged edge, the causal diagonal
+      const bool diag = p.causal && kt == q_tile;
+      if (kMasked || diag || k0 + kBK > S) {
+        uint4 bits = make_uint4(~0u, ~0u, ~0u, ~0u);
+        if (kMasked) bits = *reinterpret_cast<const uint4*>(sm.kbits[st]);
+        const uint32_t words[4] = {bits.x, bits.y, bits.z, bits.w};
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * quad + e;
+            const int kpos = k0 + c;
+            const bool vis = kpos < S && ((words[j / 4] >> (c % 32)) & 1u);
+            if (!(vis && (!diag || kpos <= qpos0))) s[4 * j + e] = neg;
+            if (!(vis && (!diag || kpos <= qpos1))) s[4 * j + 2 + e] = neg;
+          }
+        }
+      }
+
+      // online softmax in registers
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float alpha0 = fast_exp2((m0 - mx0) * scale_log2);
+      const float alpha1 = fast_exp2((m1 - mx1) * scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * scale_log2;
+      const float mb1 = mx1 * scale_log2;
+      float sum0 = 0.f, sum1 = 0.f;
+      uint32_t pa[kBK / 4];   // P in bf16 pairs: the A fragments of k-step kk are pa[4kk .. 4kk+3]
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        const float p00 = fast_exp2(fmaf(s[4 * j], scale_log2, -mb0));
+        const float p01 = fast_exp2(fmaf(s[4 * j + 1], scale_log2, -mb0));
+        const float p10 = fast_exp2(fmaf(s[4 * j + 2], scale_log2, -mb1));
+        const float p11 = fast_exp2(fmaf(s[4 * j + 3], scale_log2, -mb1));
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        pa[2 * j] = pack_bf16(p00, p01);
+        pa[2 * j + 1] = pack_bf16(p10, p11);
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[hf][4 * j] *= alpha0;
+          o[hf][4 * j + 1] *= alpha0;
+          o[hf][4 * j + 2] *= alpha1;
+          o[hf][4 * j + 3] *= alpha1;
+        }
+      }
+
+      // O += P V
+      mbar_wait(&sm.full_v[st], parity);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_regs(o[hf]);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          wgmma_rs_n64(o[hf], a, smem_desc(smem_u32(sm.v[st][hf]) + kk * 16 * 128, 1024));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_regs(o[hf]);
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    }
+
+    // epilogue: O / l, zero masked queries, bf16 pairs from registers
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    float keep0 = 1.f, keep1 = 1.f;
+    if (kMasked) {
+      if (qpos0 < S) keep0 = p.query_mask[b * p.mask_sb + qpos0] != 0 ? 1.f : 0.f;
+      if (qpos1 < S) keep1 = p.query_mask[b * p.mask_sb + qpos1] != 0 ? 1.f : 0.f;
+    }
+    const float inv0 = keep0 / fmaxf(l0, 1e-30f);
+    const float inv1 = keep1 / fmaxf(l1, 1e-30f);
+    bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * hf + 8 * j + 2 * quad;
+        if (qpos0 < S) {
+          *reinterpret_cast<uint32_t*>(ob + qpos0 * p.o_ss + col) =
+              pack_bf16(o[hf][4 * j] * inv0, o[hf][4 * j + 1] * inv0);
+        }
+        if (qpos1 < S) {
+          *reinterpret_cast<uint32_t*>(ob + qpos1 * p.o_ss + col) =
+              pack_bf16(o[hf][4 * j + 2] * inv1, o[hf][4 * j + 3] * inv1);
+        }
+      }
+    }
+    if (kLse && quad == 0) {
+      float* lb = p.lse + b * p.lse_sb + h * p.lse_sh;
+      if (qpos0 < S) lb[qpos0] = m0 * p.scale + logf(fmaxf(l0, 1e-30f));
+      if (qpos1 < S) lb[qpos1] = m1 * p.scale + logf(fmaxf(l1, 1e-30f));
+    }
   }
 }
 
-template <int kD, bool kMasked>
-cudaError_t launch(const Params& p, dim3 grid, cudaStream_t st) {
-  const size_t smem = sizeof(Smem<kD>);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kD, kMasked>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- host side -----------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
+// so the build needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over a bf16 (B, S, H, d) operand read through its strides (in
+// elements), boxes of 64 columns x `rows` rows of one head, 128B-swizzled.
+bool make_map(CUtensorMap* map, const void* base, int d, int seq, int heads, int batch,
+              long long s_s, long long s_h, long long s_b, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 2, (cuuint64_t)s_h * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int kD, bool kMasked, bool kLse>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                   const Params& p, int grid, cudaStream_t st) {
+  const int smem = smem_bytes<kD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kD, kMasked, kLse>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<kD, kMasked><<<grid, kThreads, smem, st>>>(p);
+  flash_fwd_kernel<kD, kMasked, kLse><<<grid, kThreads, smem, st>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound from Python with ctypes. Pointers are device
-// pointers of bf16 (B, S, H, head_dim) tensors whose last dim is contiguous
-// and whose other strides are multiples of 8 elements; masks are int32
-// (B, S) with unit stride along S, both null for the dense variant. `lse` is
-// null (inference) or fp32 (B, Hq, S) with unit stride along S. head_dim 128
-// takes every mode; head_dim 64 only the dense inference mode (no masks, no
-// lse). Launches on `stream` and returns cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for a mode that has no instantiation.
+// pointers of bf16 (B, S, H, head_dim) tensors whose last dim is contiguous,
+// 16-byte aligned, with other strides that are multiples of 8 elements;
+// masks are int32 (B, S) with unit stride along S, both null for the dense
+// variant. `lse` is null (inference) or fp32 (B, Hq, S) with unit stride
+// along S. head_dim 128 takes every mode; head_dim 64 only the dense
+// inference mode (no masks, no lse). Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a mode
+// that has no instantiation or operands that TMA cannot describe.
 extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               const int* key_mask, const int* query_mask, void* out,
                               float* lse, long long lse_sb, long long lse_sh,
@@ -332,42 +578,49 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               long long v_sb, long long v_ss, long long v_sh,
                               long long o_sb, long long o_ss, long long o_sh,
                               long long mask_sb, float scale, int causal, void* stream) {
+  const bool masked = key_mask != nullptr;
+  const bool dense64 = head_dim == 64 && !masked && query_mask == nullptr && lse == nullptr;
+  if (!(head_dim == 128 || dense64) || batch <= 0 || seq_len <= 0 || num_kv_heads <= 0 ||
+      num_q_heads % num_kv_heads != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, head_dim, seq_len, num_q_heads, batch, q_ss, q_sh, q_sb, kBQ) ||
+      !make_map(&tk, k, head_dim, seq_len, num_kv_heads, batch, k_ss, k_sh, k_sb, kBK) ||
+      !make_map(&tv, v, head_dim, seq_len, num_kv_heads, batch, v_ss, v_sh, v_sb, kBK)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(out);
   p.key_mask = key_mask;
   p.query_mask = query_mask;
   p.lse = lse;
-  p.lse_sb = lse_sb;
-  p.lse_sh = lse_sh;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.mask_sb = mask_sb;
+  p.lse_sb = lse_sb;
+  p.lse_sh = lse_sh;
+  p.batch = batch;
+  p.num_heads = num_q_heads;
   p.seq_len = seq_len;
   p.group = num_q_heads / num_kv_heads;
   p.scale = scale;
   p.causal = causal;
 
-  const dim3 grid((seq_len + kBQ - 1) / kBQ, num_q_heads, batch);
+  const int grid = ((seq_len + kBQ - 1) / kBQ) * num_q_heads * batch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool masked = key_mask != nullptr;
-  if (head_dim == 128) {
-    return (int)(masked ? launch<128, true>(p, grid, st) : launch<128, false>(p, grid, st));
+  if (dense64) return (int)launch<64, false, false>(tq, tk, tv, p, grid, st);
+  if (masked) {
+    return (int)(lse ? launch<128, true, true>(tq, tk, tv, p, grid, st)
+                     : launch<128, true, false>(tq, tk, tv, p, grid, st));
   }
-  if (head_dim == 64 && !masked && query_mask == nullptr && lse == nullptr) {
-    return (int)launch<64, false>(p, grid, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)(lse ? launch<128, false, true>(tq, tk, tv, p, grid, st)
+                   : launch<128, false, false>(tq, tk, tv, p, grid, st));
 }
 
 // Dynamic shared memory a CTA of the kernel uses at this head dim, in bytes
 // (0 for a head dim without an instantiation).
 extern "C" int blim_flash_fwd_smem_bytes(int head_dim) {
-  return head_dim == 128 ? (int)sizeof(Smem<128>) : head_dim == 64 ? (int)sizeof(Smem<64>) : 0;
+  return head_dim == 128 ? smem_bytes<128>() : head_dim == 64 ? smem_bytes<64>() : 0;
 }
 
 extern "C" const char* blim_cuda_error_string(int code) {

@@ -11,6 +11,10 @@ Phases, one line each (all numbers beside the card's name and power limit):
               at the zero-shot path's shapes, and time kernel, plain
               version, one PyTorch library call of the same function
               (yardstick only) and the card's bound for the same work;
+              the forward kernels (through their C entry point) and the
+              library calls are timed from CUDA graphs, so host work
+              between launches does not pace them; the Python wrapper's
+              time is printed beside;
   3. slice    the zero-shot rerank flow (CPN priors + packed VTG scoring) at
               Qwen2-7B width and depth in bf16 with seeded random weights
               and synthetic inputs: untimed at WARM_ITEMS, timed at ITEMS;
@@ -154,6 +158,58 @@ def gpu_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters=20, replays=5):
+    """Device time per call of fn, from one CUDA graph of `iters` calls
+    replayed `replays` times: no host work runs between the launches, so a
+    kernel shorter than its host-side call is timed, not the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def raw_fwd(q, k, v, mask=None, causal=True, with_lse=False):
+    """A zero-argument call of flash_fwd.cu's C entry point on operands
+    prepared once: no checks, no allocation, no mask conversion, no launch
+    counted. Times the kernel where the wrapper's host work would pace it."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    lib = fa._library("flash_fwd")
+    b, s, hq, d = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if with_lse else None
+    m = None if mask is None else mask.to(torch.int32).contiguous()
+    mp = None if m is None else m.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mp, mp, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), hq * s, s, b, s, hq, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            0 if m is None else m.stride(0), d ** -0.5, int(causal))
+
+    def call():
+        rc = lib.blim_flash_fwd(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"blim_flash_fwd: CUDA error {rc} ({lib.blim_cuda_error_string(rc).decode()})")
+
+    call.operands = (q, k, v, out, lse, m)   # the pointers in args stay valid while call lives
+    return call
+
+
 def pairs_visible(key_mask, query_mask):
     """Causal (query, key) pairs with both masks 1 and the key not after the query."""
     km = key_mask.bool().cpu().numpy()
@@ -252,7 +308,9 @@ def phase_kernels(card):
         err = diff.max().item()
         excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
         worst = max(worst, err)
-        ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, key_mask=mask, query_mask=mask))
+        ms = graph_time_ms(raw_fwd(q, k, v, mask))
+        wrapper_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, key_mask=mask,
+                                                            query_mask=mask))
         plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, mask, mask, True, d ** -0.5))
         idx = torch.arange(s, device="cuda")
         allowed = (idx[:, None] >= idx[None, :])[None, None]
@@ -260,22 +318,23 @@ def phase_kernels(card):
             allowed = allowed & mask.bool()[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         try:
-            lib_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
+            lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=allowed, enable_gqa=True))
         except TypeError:            # a PyTorch without enable_gqa
             lib_ms = None
         bound_ms, bound_by = attention_bound_ms(b, s, hq, hkv, d, mask, mask)
         print(f"[kernels] flash_fwd {name}: max|d|={err:.3e} "
               f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
+              f"kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms (CUDA graph)'}, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]", flush=True)
         if excess > ATTN_ATOL:
             fail(f"kernel case {name}: |kernel - plain| exceeds {ATTN_ATOL} + "
                  f"{ATTN_RTOL}|plain| (max |d| {err:.3e})")
         if name == "G=4 S=341 CPN holes":
-            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms)
+            record = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
     record["max_abs_err"] = worst
     return record
 
@@ -328,26 +387,29 @@ def phase_train_kernels(card):
         err_o = diff.max().item()
         excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
         err_lse = (lse - ref_lse)[rows].abs().max().item()
-        ms = gpu_time_ms(lambda: fa.flash_attention_lse(q, k, v, key_mask=m, query_mask=m))
+        ms = graph_time_ms(raw_fwd(q, k, v, m, with_lse=True))
+        wrapper_ms = gpu_time_ms(lambda: fa.flash_attention_lse(q, k, v, key_mask=m,
+                                                                query_mask=m))
         plain_ms = gpu_time_ms(lambda: fa.reference_attention_lse(q, k, v, m, m, True, scale))
         allowed = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()[None, None] \
             & m.bool()[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=allowed, enable_gqa=True)
-        lib_ms = gpu_time_ms(sdpa)       # with grad on, the forward also keeps its lse
+        lib_ms = graph_time_ms(sdpa)     # with grad on, the forward also keeps its lse
         bound_ms, bound_by = roofline_ms(io + 4 * b * hq * s, 4.0 * d * hq * pairs)
         print(f"[train-kernels] flash_fwd_lse {name}: max|d| out {err_o:.3e} "
               f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), lse {err_lse:.3e} on query-mask-1 rows "
-              f"(tol {LSE_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+              f"(tol {LSE_TOL}); kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd {lib_ms:.4f} ms (CUDA graph), "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
         if excess > ATTN_ATOL or err_lse > LSE_TOL:
             fail(f"flash_fwd_lse {name}: kernel and plain disagree")
         rec = records.setdefault("flash_fwd_lse", dict(max_abs_err=0.0))
         rec["max_abs_err"] = max(rec["max_abs_err"], err_o, err_lse)
         if "VTG" in name:
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+            rec.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
 
         # B3 + B4 on the plain forward's O and lse, so both sides read the same inputs
         before = fa.counts()
@@ -792,28 +854,32 @@ def phase_vit_kernel(card):
     err = diff.max().item()
     excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
     del ref, diff
-    ms = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=10)
+    ms = graph_time_ms(raw_fwd(q, k, v, causal=False), iters=10, replays=2)
+    wrapper_ms = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=10)
     plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, None, None, False, d ** -0.5),
                            iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
+    lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10,
+                           replays=2)
     bound_ms, bound_by = vit_attention_bound_ms(VIT_CLIPS, s, h, d)
     print(f"[vit-kernel] flash_fwd_dense {VIT_CLIPS} clips ({VIT_CLIPS}, {s}, {h}, {d}) strided "
           f"views of a packed qkv: max|d|={err:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound "
-          f"[{card}]", flush=True)
+          f"kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper {wrapper_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms "
+          f"({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound, "
+          f"{4.0 * VIT_CLIPS * h * s * s * d / ms / 1e9:.1f} TFLOP/s [{card}]", flush=True)
     if excess > ATTN_ATOL:
         fail(f"flash_fwd_dense: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| "
              f"(max |d| {err:.3e})")
-    record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=lib_ms, max_abs_err=err)
+    record = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=lib_ms, max_abs_err=err)
     del q, k, v, qt, kt, vt, out
     clips = EXTRACT_B * 4
     q, k, v = packed(clips)
-    ms_f = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=5, warmup=1)
+    ms_f = graph_time_ms(raw_fwd(q, k, v, causal=False), iters=5, replays=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_f = gpu_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5, warmup=1)
+    lib_f = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5,
+                          replays=1)
     bound_f, _ = vit_attention_bound_ms(clips, s, h, d)
     print(f"[vit-kernel] flash_fwd_dense {clips} clips (the featurizer's batch): kernel "
           f"{ms_f:.4f} ms, sdpa {lib_f:.4f} ms, bound {bound_f:.4f} ms: kernel at "
@@ -831,6 +897,33 @@ def synthetic_frames(path):
     return np.stack([base[:, 4 * t:4 * t + FRAME_HW[1]] for t in range(16)])
 
 
+def end_to_end_extraction(vit, cfg, out_dir):
+    """run_extraction with on-card preprocessing over E2E_VIDEOS synthetic
+    videos at E2E_B, 4 decode threads, features saved as fp16 files through
+    a FeatureStore in out_dir; returns (videos featurized, seconds)."""
+    import torch
+
+    from blim_tpu_torch.data.features import FeatureStore
+    from blim_tpu_torch.models import umt_vit
+    from blim_tpu_torch.pipelines import extract
+
+    proc = umt_vit.UMTImageProcessor(size=(cfg.vision.image_size,) * 2)
+    featurize = extract.make_featurizer(vit, cfg, device="cuda", device_preprocess=True)
+    store = FeatureStore(out_dir)
+
+    def decode(path):
+        return extract.resize_for_upload(synthetic_frames(path), proc, proc.size)
+
+    def consume(batch_paths, feats_dev):
+        for path, feat in zip(batch_paths, feats_dev.to(torch.float16).cpu().numpy()):
+            store.save(path, feat)
+
+    return extract.run_extraction(
+        [f"synthetic_{i:03d}" for i in range(E2E_VIDEOS)], decode, featurize, consume,
+        batch_size=E2E_B, clips=cfg.num_clips, local_frames=cfg.mm_local_num_frames,
+        decode_workers=4, log=lambda *a: None)
+
+
 def phase_extract(card):
     """The extraction slice at full width on the card."""
     import tempfile
@@ -839,7 +932,6 @@ def phase_extract(card):
 
     from blim_tpu_torch.checkpoints.convert import init_vision_tower
     from blim_tpu_torch.core.config import ModelConfig
-    from blim_tpu_torch.data.features import FeatureStore
     from blim_tpu_torch.kernels import flash_attention as fa
     from blim_tpu_torch.kernels.attention import reference_attention
     from blim_tpu_torch.models import projector, umt_vit
@@ -943,25 +1035,12 @@ def phase_extract(card):
     proc = umt_vit.UMTImageProcessor(size=(vcfg.image_size,) * 2)
     n_frames = cfg.num_clips * cfg.mm_local_num_frames
     paths = [f"synthetic_{i:03d}" for i in range(E2E_VIDEOS)]
-    featurize = extract.make_featurizer(vit, cfg, device="cuda", device_preprocess=True)
-
-    def decode(path):
-        return extract.resize_for_upload(synthetic_frames(path), proc, proc.size)
-
     with tempfile.TemporaryDirectory() as out_dir:
-        store = FeatureStore(out_dir)
-
-        def consume(batch_paths, feats_dev):
-            for path, feat in zip(batch_paths, feats_dev.to(torch.float16).cpu().numpy()):
-                store.save(path, feat)
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         e2e_resident = torch.cuda.memory_allocated() / 2**30
         fa.reset_counts()
-        n_ok, e2e_s = extract.run_extraction(
-            paths, decode, featurize, consume, batch_size=E2E_B, clips=cfg.num_clips,
-            local_frames=cfg.mm_local_num_frames, decode_workers=4, log=lambda *a: None)
+        n_ok, e2e_s = end_to_end_extraction(vit, cfg, out_dir)
         e2e_counts = fa.counts()
         e2e_peak = torch.cuda.max_memory_allocated() / 2**30
         files = sorted(os.listdir(out_dir))

@@ -15,7 +15,10 @@ EXTRACT_B videos with on-card preprocessing of raw FRAME_HW uint8 frames
 (so the resize runs), one untimed batch, then EXTRACT_TIMED batches timed
 without the profiler and EXTRACT_TIMED under it; the resize and ToMe alone
 are timed with CUDA events besides, since their matrix products share
-kernel names with the tower's. All print the device-busy share (summed
+kernel names with the tower's; then chip_smoke.py's end-to-end extraction
+(run_extraction over E2E_VIDEOS videos at E2E_B, decode and saves
+included) runs once untimed and once under the profiler, for its wall and
+device-busy share. All print the device-busy share (summed
 kernel time over wall time; the work runs on one stream) and the kernels
 that take the most device time, grouped by the layer that launches them.
 With --out, the full kernel table goes to DIR/profile.txt
@@ -139,6 +142,24 @@ def part_times_ms(chip_smoke, cfg, batch):
     return resize_ms, tome_ms
 
 
+def end_to_end_busy(chip_smoke, cfg, vit):
+    """chip_smoke.py's end-to-end extraction (decode, featurize, save) once
+    untimed, then once under the profiler; returns (videos, wall s, device
+    busy s) of the profiled run."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        chip_smoke.end_to_end_extraction(vit, cfg, out_dir)
+    with tempfile.TemporaryDirectory() as out_dir:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            n_ok, wall = chip_smoke.end_to_end_extraction(vit, cfg, out_dir)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA")
+    return n_ok, wall, busy_us / 1e6
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -159,13 +180,14 @@ def main():
     groups = GROUPS
     if args.extract:
         groups = EXTRACT_GROUPS
-        cfg, _, feat, batches = featurizer_setup(chip_smoke)
+        cfg, vit, feat, batches = featurizer_setup(chip_smoke)
         n = len(batches) - 1
         featurize_all(feat, batches[:1])
         plain_wall = featurize_all(feat, batches[1:])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             wall = featurize_all(feat, batches[1:])
         resize_ms, tome_ms = part_times_ms(chip_smoke, cfg, batches[0])
+        e2e = end_to_end_busy(chip_smoke, cfg, vit)
     elif args.train:
         flow = chip_smoke.setup_flow()
         tr = chip_smoke.setup_train(flow)
@@ -196,6 +218,11 @@ def main():
               f"profiled wall) [{card}]")
         print(f"[profile]   alone (CUDA events): on-card resize {resize_ms:.1f} ms/batch, ToMe "
               f"{tome_ms:.1f} ms/batch [{card}]")
+        n_ok, e2e_wall, e2e_busy = e2e
+        print(f"[profile] end to end (run_extraction, {n_ok} videos at B={chip_smoke.E2E_B}, "
+              f"4 decode threads, saves included): wall {e2e_wall:.3f}s under the profiler "
+              f"({n_ok / e2e_wall:.3f} videos/s), device busy {e2e_busy:.3f}s "
+              f"({100 * e2e_busy / e2e_wall:.1f}%) [{card}]")
     elif args.train:
         print(f"[profile] {n} train steps: wall {1e3 * plain_wall / n:.1f} ms/step without the "
               f"profiler, {1e3 * wall / n:.1f} ms/step under it, device busy "
