@@ -9,7 +9,8 @@ its dense non-causal mode at d = 64 (B2, every attention of the UMT ViT),
 Build. At first use a wrapper compiles its source with nvcc for sm_90a into
 a shared library with plain C entry points and loads it with ctypes. Each
 library lands in `blim_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of
-its source and the flags, so an edit rebuilds. `build()` compiles both
+its source, the headers it includes (`csrc/hopper.cuh`) and the flags, so
+an edit rebuilds. `build()` compiles both
 sources at once, one nvcc each. A failed build raises: there is no fallback
 to the plain version on a CUDA tensor.
 
@@ -77,7 +78,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str = "flash_fwd") -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the named source's library lands, keyed by the source, every
+    header beside it (csrc/*.cuh, which the sources include) and the flags."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(SOURCES[name].parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
 
 
@@ -127,10 +134,14 @@ def _library(name: str) -> ctypes.CDLL:
             lib.blim_cuda_error_string.argtypes = [i32]
             lib.blim_cuda_error_string.restype = ctypes.c_char_p
         else:
-            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
+            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 16 + [f32, i32, ptr]
             lib.blim_flash_dq.restype = i32
-            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [i64] * 19 + [f32, i32, ptr]
             lib.blim_flash_dkv.restype = i32
+            lib.blim_flash_bwd_smem_bytes.argtypes = [i32]
+            lib.blim_flash_bwd_smem_bytes.restype = i32
+            lib.blim_flash_dkv_cluster_occupancy.argtypes = [i32]
+            lib.blim_flash_dkv_cluster_occupancy.restype = i32
             lib.blim_flash_bwd_error_string.argtypes = [i32]
             lib.blim_flash_bwd_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -374,29 +385,51 @@ def flash_attention_backward(
         _check_operand(name, t, dev)
     _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
-    hkv = k.shape[2]
     if lse.shape != (b, hq, s) or lse.dtype != torch.float32 or lse.device != dev:
         raise ValueError(f"lse must be fp32 {(b, hq, s)} on {dev}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    lse = lse.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return dq, dk, dv
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     km = None if key_mask is None else _mask_operand(key_mask, (b, s), dev)
-    km_ptr = None if km is None else km.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _library("flash_bwd")
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-              delta.data_ptr(), km_ptr)
-    rc = lib.blim_flash_dq(*common, dq.data_ptr(), b, s, hq, hkv, float(scale),
-                           int(bool(causal)), stream)
-    _raise_on(rc, "flash_dq", lib.blim_flash_bwd_error_string)
+    dq, dk, dv, call_dq, call_dkv = _backward_calls(q, k, v, g, lse.contiguous(), delta, km,
+                                                    scale, causal)
+    error_string = _library("flash_bwd").blim_flash_bwd_error_string
+    _raise_on(call_dq(), "flash_dq", error_string)
     launches_dq += 1
-    rc = lib.blim_flash_dkv(*common, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv,
-                            float(scale), int(bool(causal)), stream)
-    _raise_on(rc, "flash_dkv", lib.blim_flash_bwd_error_string)
+    _raise_on(call_dkv(), "flash_dkv", error_string)
     launches_dkv += 1
     return dq, dk, dv
+
+
+def _backward_calls(q, k, v, g, lse, delta, key_mask, scale, causal):
+    """flash_bwd.cu's two C entry points on prepared operands (q, k, v, g =
+    dO times the query mask; lse, delta contiguous fp32 (B, Hq, S); an int32
+    key mask with unit stride along S, or None): (dq, dk, dv, call_dq,
+    call_dkv). Each call launches one kernel on the current stream into the
+    outputs and returns its CUDA error code; nothing is checked or counted."""
+    lib = _library("flash_bwd")
+    b, s, hq, _ = q.shape
+    hkv = k.shape[2]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), None if key_mask is None else key_mask.data_ptr())
+    shape = (b, s, hq, hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3])
+    tail = (0 if key_mask is None else key_mask.stride(0), float(scale), int(bool(causal)))
+
+    def call_dq() -> int:
+        return lib.blim_flash_dq(*inputs, dq.data_ptr(), *shape, *dq.stride()[:3], *tail,
+                                 torch.cuda.current_stream(q.device).cuda_stream)
+
+    def call_dkv() -> int:
+        return lib.blim_flash_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *shape,
+                                  *dk.stride()[:3], *dv.stride()[:3], *tail,
+                                  torch.cuda.current_stream(q.device).cuda_stream)
+
+    # the pointers in `inputs` stay valid while a call lives
+    call_dq.operands = call_dkv.operands = (q, k, v, g, lse, delta, key_mask)
+    return dq, dk, dv, call_dq, call_dkv
 
 
 class FlashAttentionFunction(torch.autograd.Function):

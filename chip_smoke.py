@@ -158,18 +158,23 @@ def gpu_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def graph_time_ms(fn, iters=20, replays=5):
+def graph_time_ms(fn, iters=20, replays=5, stream=None):
     """Device time per call of fn, from one CUDA graph of `iters` calls
     replayed `replays` times: no host work runs between the launches, so a
-    kernel shorter than its host-side call is timed, not the host."""
+    kernel shorter than its host-side call is timed, not the host. With a
+    stream, fn runs and is captured on it (an autograd backward runs on the
+    stream of its forward, which must then be that stream)."""
+    import contextlib
+
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -210,6 +215,33 @@ def raw_fwd(q, k, v, mask=None, causal=True, with_lse=False):
     return call
 
 
+def raw_bwd(q, k, v, dout, mask, out, lse):
+    """Zero-argument calls of flash_bwd.cu's two C entry points (dq, then dk
+    and dv) on operands prepared once, as the wrapper prepares them: dO
+    times the mask, delta = rowsum(dO * O), a causal masked launch each; no
+    checks, no allocation, no launch counted."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    g = (dout * mask[:, :, None, None].to(dout.dtype)).contiguous()
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    km = mask.to(torch.int32).contiguous()
+    *_, call_dq, call_dkv = fa._backward_calls(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               g, lse.contiguous(), delta, km,
+                                               q.shape[-1] ** -0.5, True)
+    error_string = fa._library("flash_bwd").blim_flash_bwd_error_string
+
+    def checked(call, name):
+        def run():
+            rc = call()
+            if rc:
+                fail(f"blim_{name}: CUDA error {rc} ({error_string(rc).decode()})")
+        return run
+
+    return checked(call_dq, "flash_dq"), checked(call_dkv, "flash_dkv")
+
+
 def pairs_visible(key_mask, query_mask):
     """Causal (query, key) pairs with both masks 1 and the key not after the query."""
     km = key_mask.bool().cpu().numpy()
@@ -236,6 +268,21 @@ def attention_bound_ms(b, s, hq, hkv, d, key_mask, query_mask):
     return roofline_ms(nbytes, 4.0 * d * hq * pairs)
 
 
+def backward_traffic(b, s, hq, hkv, d, key_mask, query_mask):
+    """Bytes and flops of one causal masked backward, per kernel: each input
+    read once and each output written once; B3 (flash_dq) reads q, dO, k, v,
+    lse, delta, the mask and writes dq, against 3 products of 2 d flops per
+    visible (query, key) pair; B4 (flash_dkv) reads the same and writes dk,
+    dv, against 4 products."""
+    q_like = 2 * b * s * hq * d       # bf16 q, dO or dq
+    kv_like = 2 * b * s * hkv * d     # bf16 k, v, dk or dv
+    stats = 2 * 4 * b * hq * s        # fp32 lse and delta
+    mask = 4 * b * s
+    pairs = pairs_visible(key_mask, query_mask)
+    return {"flash_dq": (3 * q_like + 2 * kv_like + stats + mask, 6.0 * d * hq * pairs),
+            "flash_dkv": (2 * q_like + 4 * kv_like + stats + mask, 8.0 * d * hq * pairs)}
+
+
 def phase_build():
     from blim_tpu_torch.kernels import flash_attention as fa
 
@@ -246,13 +293,19 @@ def phase_build():
         print(f"[build] {fa.SOURCES[name].name} -> {fa.library_path(name).name} for sm_90a"
               + ("" if report else " (already built)"), flush=True)
         for ln in report.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            if any(w in ln for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"[build]   {ln.strip()}", flush=True)
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
     print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
           f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense), "
           f"flash_dq {bwd.blim_flash_bwd_smem_bytes(0)} B, "
           f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1)} B", flush=True)
+    occupancy = bwd.blim_flash_dkv_cluster_occupancy(7)
+    if occupancy < 0:
+        fail(f"flash_dkv cluster occupancy query: CUDA error {-occupancy}")
+    print(f"[build] flash_dkv at the 7B's GQA group of 7: clusters of {occupancy // 1000} CTAs, "
+          f"{occupancy % 1000} clusters resident at once "
+          f"({occupancy // 1000 * (occupancy % 1000)} of the card's SMs)", flush=True)
     print(f"[build] {len(reports)} sources in {secs:.1f}s", flush=True)
 
 
@@ -429,32 +482,28 @@ def phase_train_kernels(card):
             lambda: fa.flash_attention_backward(q, k, v, m, m, ref, ref_lse, dout))
         plain_bwd = gpu_time_ms(
             lambda: fa.reference_attention_backward(q, k, v, m, m, ref, ref_lse, dout, True, scale))
-        lib = fa._library("flash_bwd")
-        g = (dout * m[:, :, None, None].to(dout.dtype)).contiguous()
-        delta = (g.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
-        km = m.contiguous()
-        stream = torch.cuda.current_stream().cuda_stream
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ref_lse.data_ptr(),
-                  delta.data_ptr(), km.data_ptr())
-        ms_dq_only = gpu_time_ms(lambda: lib.blim_flash_dq(
-            *common, dq.data_ptr(), b, s, hq, hkv, scale, 1, stream))
-        ms_dkv_only = gpu_time_ms(lambda: lib.blim_flash_dkv(
-            *common, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, scale, 1, stream))
-        out_sdpa = sdpa()
+        call_dq, call_dkv = raw_bwd(q, k, v, dout, m, ref, ref_lse)
+        ms_dq_only = graph_time_ms(call_dq)
+        ms_dkv_only = graph_time_ms(call_dkv)
+        # SDPA's backward alone: its forward runs eagerly on a side stream,
+        # then autograd.grad (dq, dk, dv) is captured on that stream
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out_sdpa = sdpa()
         do_t = dout.transpose(1, 2)
-        lib_bwd = gpu_time_ms(lambda: torch.autograd.grad(out_sdpa, (qt, kt, vt), do_t,
-                                                          retain_graph=True))
-        stats = 2 * 4 * b * hq * s                                        # lse + delta
-        b_dq, by_dq = roofline_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + stats
-                                  + 4 * b * s, 6.0 * d * hq * pairs)
-        b_dkv, by_dkv = roofline_ms(2 * (2 * b * s * hq * d + 4 * b * s * hkv * d) + stats
-                                    + 4 * b * s, 8.0 * d * hq * pairs)
+        lib_bwd = graph_time_ms(lambda: torch.autograd.grad(out_sdpa, (qt, kt, vt), do_t,
+                                                            retain_graph=True), stream=side)
+        traffic = backward_traffic(b, s, hq, hkv, d, m, m)
+        b_dq, by_dq = roofline_ms(*traffic["flash_dq"])
+        b_dkv, by_dkv = roofline_ms(*traffic["flash_dkv"])
         print(f"[train-kernels] flash_dq/flash_dkv {name}: " + ", ".join(
             f"{gname} max|d| {e:.3e} (max|plain| {mx:.3e})" for gname, (e, mx) in errs.items())
             + f" (tol {GRAD_TOL} max|plain|); dq kernel {ms_dq_only:.4f} ms (bound {b_dq:.4f}, "
-            f"{by_dq}), dkv kernel {ms_dkv_only:.4f} ms (bound {b_dkv:.4f}, {by_dkv}), "
-            f"wrapper with delta {ms_wrapper:.4f} ms, plain backward {plain_bwd:.4f} ms, "
-            f"sdpa backward (dq+dk+dv) {lib_bwd:.4f} ms [{card}]", flush=True)
+            f"{by_dq}), dkv kernel {ms_dkv_only:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) (raw entry "
+            f"points, CUDA graph), wrapper with delta {ms_wrapper:.4f} ms, plain backward "
+            f"{plain_bwd:.4f} ms, sdpa backward (dq+dk+dv) {lib_bwd:.4f} ms (CUDA graph) [{card}]",
+            flush=True)
         for gname, (e, mx) in errs.items():
             if e > GRAD_TOL * mx:
                 fail(f"{gname} {name}: |kernel - plain| {e:.3e} > {GRAD_TOL} x {mx:.3e}")
@@ -465,8 +514,9 @@ def phase_train_kernels(card):
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [errs[gn][0] for gn in gnames])
             if "VTG" in name:
                 # the plain backward and the library backward compute dq, dk and dv together
-                rec.update(ms=ms_k, plain_ms=plain_bwd, bound_ms=b_k, bound_by=by_k,
-                           library_ms=lib_bwd, plain_and_library_cover="dq+dk+dv")
+                rec.update(ms=ms_k, wrapper_ms=ms_wrapper, plain_ms=plain_bwd, bound_ms=b_k,
+                           bound_by=by_k, library_ms=lib_bwd,
+                           plain_and_library_cover="dq+dk+dv", wrapper_covers="dq+dk+dv")
     return records
 
 

@@ -18,6 +18,15 @@ It runs at the main paths' masks and shapes, held to
 tolerances (output |d| <= ATTN_ATOL + ATTN_RTOL |plain|; lse |d| <= LSE_TOL on
 rows with query mask 1), so a tiling or rounding choice that would break
 chip_smoke.py's phases 2, 5 or 8 shows here first.
+
+`scheduled_backward` models flash_bwd.cu the same way: flash_dq's 128-row q
+tiles against 64-row kv tiles up to the causal diagonal, flash_dkv's 128-row
+kv tiles against 64-row q tiles from it, both zero-filled beyond S; the
+exponentials as exp2 of one FMA of the unscaled score with scale * log2(e)
+and lse * log2(e) (fp64); invisible pairs given p = 0; P and dS rounded to
+bf16 before their products; each cluster rank's partial dK, dV over its q
+heads of the GQA group, summed in rank order. It is held to
+`reference_attention_backward` with chip_smoke.py's GRAD_TOL.
 """
 
 import math
@@ -26,11 +35,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_ATOL, ATTN_RTOL, LSE_TOL
+import chip_smoke
+from chip_smoke import ATTN_ATOL, ATTN_RTOL, GRAD_TOL, LSE_TOL
 from blim_tpu_torch.kernels import flash_attention as tfa
 from blim_tpu_torch.kernels.attention import reference_attention
 
 BQ = BK = 128                 # q rows per CTA, kv rows per tile
+DQ_ROWS, DQ_KV = 128, 64      # flash_dq: q rows a CTA, kv rows a tile
+DKV_ROWS, DKV_Q = 128, 64     # flash_dkv: kv rows a CTA, q rows a tile
 LOG2E = 1.4426950408889634
 
 
@@ -85,6 +97,88 @@ def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scal
         out[:, :, rows] = o / lc[..., None] * keep
         lse[:, :, rows] = m * scale + torch.log(lc)
     return out.permute(0, 2, 1, 3).to(torch.bfloat16), lse
+
+
+def _masked_logit(scale):
+    """The power of two nearest -1e30 in the scaled-logit domain, in unscaled units."""
+    return -math.ldexp(1.0, round(math.log2(_f32(1e30 / scale))))
+
+
+def _cluster_size(group):
+    return next(c for c in range(8, 0, -1) if group % c == 0)
+
+
+def scheduled_backward(q, k, v, key_mask, query_mask, out, lse, dout, causal=True, scale=None,
+                       invisible_p_zero=True):
+    """flash_bwd.cu's dq, dk, dv (bf16), modelled tile by tile. With
+    invisible_p_zero False, invisible pairs keep the forward's masked logit
+    and go through the same exp2-FMA instead of getting p = 0."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    grp = hq // hkv
+    scale = _f32(d ** -0.5 if scale is None else scale)
+    c = _f32(scale * _f32(LOG2E))
+    neg = _masked_logit(scale)
+    g = dout if query_mask is None else dout * query_mask[:, :, None, None].to(dout.dtype)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)          # (B, Hq, S)
+    lse2 = (lse.float() * _f32(LOG2E)).double()                         # rounded to fp32 first
+    sp = -(-s // 128) * 128
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, sp - s)).permute(0, 2, 1, 3)  # noqa: E731
+    qf, gf, kf, vf = pad(q), pad(g), pad(k), pad(v)                     # (B, H, S', d), TMA's zeros
+    delta = torch.nn.functional.pad(delta, (0, sp - s))
+    lse2 = torch.nn.functional.pad(lse2, (0, sp - s))
+    kbits = torch.zeros((b, sp), dtype=torch.bool)
+    kbits[:, :s] = True if key_mask is None else key_mask.bool()
+    pos = torch.arange(sp)
+    qin = pos < s
+
+    def p_and_ds(qh, kh, rows, cols):
+        """P and dS (fp32) of q heads qh against their kv heads kh, (B, H, rows, cols)."""
+        sc = qf[:, qh][:, :, rows] @ kf[:, kh][:, :, cols].transpose(-1, -2)   # unscaled fp32
+        dp = gf[:, qh][:, :, rows] @ vf[:, kh][:, :, cols].transpose(-1, -2)
+        vis = kbits[:, None, None, cols] & qin[rows][None, None, :, None]
+        if causal:
+            vis = vis & (cols[None, :] <= rows[:, None])[None, None]
+        if not invisible_p_zero:
+            sc = sc.masked_fill(~vis, neg)
+        p = torch.exp2(sc.double() * c - lse2[:, qh][:, :, rows, None]).float()
+        if invisible_p_zero:
+            p = p.masked_fill(~vis, 0.0)
+        return p, p * (dp - delta[:, qh][:, :, rows, None])
+
+    heads = torch.arange(hq)
+    dq = torch.zeros((b, hq, sp, d))
+    for qt in range(sp // DQ_ROWS):
+        rows = torch.arange(qt * DQ_ROWS, (qt + 1) * DQ_ROWS)
+        n_kv = -(-s // DQ_KV)
+        for kt in range(min(2 * qt + 2, n_kv) if causal else n_kv):
+            cols = torch.arange(kt * DQ_KV, (kt + 1) * DQ_KV)
+            _, ds = p_and_ds(heads, heads // grp, rows, cols)
+            dq[:, :, rows] += ds.to(torch.bfloat16).float() @ kf[:, heads // grp][:, :, cols]
+
+    cl = _cluster_size(grp)
+    dk = torch.zeros((b, hkv, sp, d))
+    dv = torch.zeros((b, hkv, sp, d))
+    for kt in range(sp // DKV_ROWS):
+        cols = torch.arange(kt * DKV_ROWS, (kt + 1) * DKV_ROWS)
+        j0 = 2 * kt if causal else 0
+        parts = []
+        for rank in range(cl):                          # one CTA of the cluster each
+            pk = torch.zeros((b, hkv, DKV_ROWS, d))
+            pv = torch.zeros((b, hkv, DKV_ROWS, d))
+            for i in range(grp // cl):
+                qh = torch.arange(hkv) * grp + i * cl + rank
+                for j in range(j0, -(-s // DKV_Q)):
+                    rows = torch.arange(j * DKV_Q, (j + 1) * DKV_Q)
+                    p, ds = p_and_ds(qh, torch.arange(hkv), rows, cols)
+                    pv += p.transpose(-1, -2).to(torch.bfloat16).float() @ gf[:, qh][:, :, rows]
+                    pk += ds.transpose(-1, -2).to(torch.bfloat16).float() @ qf[:, qh][:, :, rows]
+            parts.append((pk, pv))
+        for pk, pv in parts:                            # the cluster's sum, in rank order
+            dk[:, :, cols] += pk
+            dv[:, :, cols] += pv
+    back = lambda t, mul: (t[:, :, :s] * mul).permute(0, 2, 1, 3).to(torch.bfloat16)  # noqa: E731
+    return back(dq, scale), back(dk, scale), back(dv, 1.0)
 
 
 def _vtg_mask(s):
@@ -159,3 +253,85 @@ def test_fully_masked_rows_stay_finite_only_with_a_power_of_two_masked_logit():
                        (_f32(-1e30 / _f32(128 ** -0.5)), False)):
         exponent = neg * c - _f32(neg * c)     # the FMA: exact product minus its fp32 rounding
         assert (exponent == 0.0) == exact
+
+
+# name -> (B, S, Hq, Hkv, mask maker): the train step's backward shapes with
+# one kv head's worth of the 7B's GQA group of 7 (Hq 14, Hkv 2), and the
+# forward's other masks; one case at a group of 4 (a cluster of 4)
+BACKWARD_CASES = {
+    "VTG S=448 right pads": (4, 448, 14, 2, lambda rng: _vtg_mask(448)),
+    "TVG S=256 left pads": (4, 256, 14, 2, lambda rng: _tvg_mask(256)),
+    "S=341 CPN holes": (4, 341, 14, 2, lambda rng: _holes_mask(rng, 4, 341)),
+    "S=341 dense causal": (2, 341, 14, 2, lambda rng: None),
+    "S=200 right pads": (2, 200, 14, 2, lambda rng: _vtg_mask(200)[:2]),
+    "S=200 right pads group 4": (2, 200, 8, 2, lambda rng: _vtg_mask(200)[:2]),
+}
+
+
+def _backward_inputs(case):
+    b, s, hq, hkv, make_mask = BACKWARD_CASES[case]
+    rng = np.random.default_rng(100 + sorted(BACKWARD_CASES).index(case))
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(torch.bfloat16)  # noqa: E731
+    q, k, v, dout = t(b, s, hq, 128), t(b, s, hkv, 128), t(b, s, hkv, 128), t(b, s, hq, 128)
+    mask = make_mask(rng)
+    out, lse = tfa.reference_attention_lse(q, k, v, mask, mask, True, 128 ** -0.5)
+    return q, k, v, mask, out, lse, dout
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_scheduled_backward_matches_plain_version(case):
+    q, k, v, mask, out, lse, dout = _backward_inputs(case)
+    got = scheduled_backward(q, k, v, mask, mask, out, lse, dout)
+    want = tfa.reference_attention_backward(q, k, v, mask, mask, out, lse, dout, True, 128 ** -0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (case, name)
+        assert torch.isfinite(g.float()).all(), (case, name)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_TOL * w.float().abs().max().item(), (case, name, err)
+
+
+def test_fully_masked_query_rows_stay_finite_only_with_p_zero_for_invisible_pairs():
+    """TVG left pads leave query rows with no visible key, whose lse is about
+    -1e30. Giving their invisible pairs the masked logit and the exp2-FMA
+    leaves the difference of two values near -1.4e30 whose fp32 roundings
+    do not cancel: with the plain version's lse, that is +1.5e29, p = inf,
+    and inf x dO = 0 makes dv NaN. With p = 0 for invisible pairs every
+    gradient is finite, whichever forward produced the lse."""
+    q, k, v, mask, out, lse, dout = _backward_inputs("TVG S=256 left pads")
+    bad = scheduled_backward(q, k, v, mask, mask, out, lse, dout, invisible_p_zero=False)
+    assert not torch.isfinite(bad[2].float()).all()
+    out_k, lse_k = scheduled_forward(q, k, v, mask, mask, True)
+    for o, l in ((out, lse), (out_k, lse_k)):
+        for t in scheduled_backward(q, k, v, mask, mask, o, l, dout):
+            assert torch.isfinite(t.float()).all()
+
+
+def test_backward_bound_counts_every_byte_at_the_vtg_shape():
+    """B3 reads q, dO, k, v, lse, delta and the mask and writes dq: ~42.6 MB,
+    0.0127 ms at 3.35 TB/s; B4 writes dk, dv instead: ~33.4 MB, 0.0100 ms."""
+    traffic = chip_smoke.backward_traffic(4, 448, 28, 4, 128, _vtg_mask(448), _vtg_mask(448))
+    dq_bytes, dq_flops = traffic["flash_dq"]
+    dkv_bytes, dkv_flops = traffic["flash_dkv"]
+    assert dq_bytes == 3 * 12_845_056 + 2 * 1_835_008 + 401_408 + 7_168 == 42_613_760
+    assert dkv_bytes == 2 * 12_845_056 + 4 * 1_835_008 + 401_408 + 7_168 == 33_438_720
+    assert dkv_flops == pytest.approx(dq_flops * 8 / 6)
+    ms, by = chip_smoke.roofline_ms(dq_bytes, dq_flops)
+    assert by == "bytes" and ms == pytest.approx(0.01272, abs=1e-5)
+    ms, by = chip_smoke.roofline_ms(dkv_bytes, dkv_flops)
+    assert by == "bytes" and ms == pytest.approx(0.00998, abs=1e-5)
+
+
+def test_editing_the_shared_header_rebuilds_both_libraries(monkeypatch, tmp_path):
+    """Both sources include csrc/hopper.cuh: an edit to it must change the
+    library path of each, or a stale build would be loaded."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(tfa.CSRC, csrc)
+    monkeypatch.setattr(tfa, "SOURCES", {n: csrc / p.name for n, p in tfa.SOURCES.items()})
+    before = {n: tfa.library_path(n) for n in tfa.SOURCES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: tfa.library_path(n) for n in tfa.SOURCES}
+    assert all(before[n] != after[n] for n in tfa.SOURCES)
+    assert all(after[n].name == f"lib{n}.so" for n in tfa.SOURCES)
