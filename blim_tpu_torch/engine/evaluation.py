@@ -1,14 +1,17 @@
-"""Zero-shot evaluation: VTG top-k rerank with CPN priors and
-score-matrix assembly (port of the has_tvg=False, shared-prefix, packed
-branch of blim_tpu/engine/evaluation.py).
+"""Evaluation: top-k rerank in both directions with CPN priors and
+score-matrix assembly (port of the shared-prefix, packed branch of
+blim_tpu/engine/evaluation.py).
 
   v2t candidate likelihood (VTG): P(candidate caption | query video)
   v2t candidate prior      (VTG): P(candidate caption), the CPN prior
   t2v query     likelihood (VTG): P(query caption | candidate video)
+  v2t query     likelihood (TVG): P(query video | candidate caption)
+  t2v candidate likelihood (TVG): P(candidate video | query caption)
+  t2v candidate prior      (TVG): P(candidate video), the CPN prior
 
-Items are (video, caption) rows and the matrices are (N x N) over items;
-cells outside the top-k keep the fill value -100. The fine-tuned (TVG)
-directions join the port with the fine-tuned flow.
+The TVG directions (`has_tvg`, the fine-tuned flow) need an engine built
+with a TVG layout. Items are (video, caption) rows and the matrices are
+(N x N) over items; cells outside the top-k keep the fill value -100.
 """
 
 from __future__ import annotations
@@ -38,14 +41,15 @@ def evaluation(
     dataset: str,
     topk: int = 16,
     cpn: bool = False,
-    has_tvg: bool = False,
+    has_tvg: bool = True,
     fill: float = -100.0,
     verbose: bool = True,
     timings: Dict[str, float] | None = None,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """Returns (t2v_dict, v2t_dict) of (N, N) score matrices."""
-    if has_tvg:
-        raise NotImplementedError("the TVG directions are not ported yet (zero-shot only)")
+    if has_tvg and engine.tvg_layout is None:
+        raise ValueError("has_tvg=True needs an engine built with a tvg_layout "
+                         "(RerankEngine(params, config, vtg_layout, tvg_layout, ...))")
     t_start = time.time()
     n = len(inputs.captions)
     item_vid = np.asarray(inputs.item_video_idx)
@@ -57,6 +61,11 @@ def evaluation(
     bank = CaptionBank.build_vtg(inputs.captions, tokenizer, dataset, engine.vtg_layout)
     banks = engine.upload(bank, inputs.features)
     mark("upload")
+    if has_tvg:
+        tvg_bank = CaptionBank.build_tvg(inputs.captions, tokenizer, engine.tvg_layout)
+        tvg_banks = engine.upload(tvg_bank, inputs.features, shared_feats=banks)
+        video_vocab = engine.video_vocab(banks)
+        mark("upload_tvg")
     prior = engine.compute_vtg_priors_packed(banks) if cpn else None
     mark("prior_done")
 
@@ -64,27 +73,36 @@ def evaluation(
     t_rows, t_cols = topk_pairs(inputs.t2v_iv2, topk)   # rows: captions, cols: videos
     n1 = len(v_rows)
     # cross-grid dedup: v2t_candidate[i, j] and t2v_query[j, i] are the same
-    # number P(caption j | video i); score the union once
+    # number P(caption j | video i), and v2t_query[i, j] and
+    # t2v_candidate[j, i] the same P(video i | caption j); score the union once
     all_caps = np.concatenate([v_cols, t_rows])
     all_vids = np.concatenate([item_vid[v_rows], item_vid[t_cols]])
     u_cap, u_vid, inv = unique_pairs(all_caps, all_vids)
     if verbose:
         print(f"VTG union: {len(u_cap)} unique pairs of {len(all_caps)} grid cells (topk={topk})")
+    if has_tvg:
+        tscores, tpriors = engine.score_pairs_tvg_packed(tvg_banks, video_vocab, u_cap, u_vid,
+                                                         with_prior=cpn)
+        mark("tvg_done")
     scores = engine.score_pairs_vtg_packed(banks, u_cap, u_vid)
     mark("vtg_done")
 
+    def scatter(rows, cols, values) -> np.ndarray:
+        mat = np.full((n, n), fill, np.float32)
+        mat[rows, cols] = values
+        return mat
+
     t2v_dict: Dict[str, np.ndarray] = {}
     v2t_dict: Dict[str, np.ndarray] = {}
-    cand = np.full((n, n), fill, np.float32)
-    cand[v_rows, v_cols] = scores[inv[:n1]]
-    query = np.full((n, n), fill, np.float32)
-    query[t_rows, t_cols] = scores[inv[n1:]]
-    v2t_dict["candidate_likelihood"] = cand
-    t2v_dict["query_likelihood"] = query
+    v2t_dict["candidate_likelihood"] = scatter(v_rows, v_cols, scores[inv[:n1]])
+    t2v_dict["query_likelihood"] = scatter(t_rows, t_cols, scores[inv[n1:]])
     if cpn:
-        pmat = np.full((n, n), fill, np.float32)
-        pmat[v_rows, v_cols] = prior[v_cols]
-        v2t_dict["candidate_prior"] = pmat
+        v2t_dict["candidate_prior"] = scatter(v_rows, v_cols, prior[v_cols])
+    if has_tvg:
+        v2t_dict["query_likelihood"] = scatter(v_rows, v_cols, tscores[inv[:n1]])
+        t2v_dict["candidate_likelihood"] = scatter(t_rows, t_cols, tscores[inv[n1:]])
+        if cpn:
+            t2v_dict["candidate_prior"] = scatter(t_rows, t_cols, tpriors[inv[n1:]])
     v2t_dict["internvideo2"] = np.asarray(inputs.v2t_iv2, np.float32)
     t2v_dict["internvideo2"] = np.asarray(inputs.t2v_iv2, np.float32)
     mark("total")

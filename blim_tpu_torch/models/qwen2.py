@@ -4,8 +4,9 @@ Parameters are the JAX package's tree (see checkpoints/convert.py): layers
 stacked along a leading axis, kernels in (in, out) form. The JAX `lax.scan`
 over layers becomes a Python loop over that axis. Attention on the prefix
 forwards goes through kernels/attention.multi_head_attention (the
-hand-written flash kernel on CUDA); the packed-suffix attention and the LM
-head are plain PyTorch, as they were plain XLA in the JAX package.
+hand-written flash kernel on CUDA); the packed-suffix attention, the TVG
+packed-prefix and flat-query attentions and the LM head are plain PyTorch,
+as they were plain XLA in the JAX package.
 
 Numerics follow the JAX package: RMSNorm statistics, softmax statistics and
 logits in fp32; RoPE tables in fp32, cast to the activations' dtype before
@@ -22,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from blim_tpu_torch.adapters.lora import apply_dense
 from blim_tpu_torch.core.config import Qwen2Config
-from blim_tpu_torch.core.numerics import einsum_f32, matmul_f32
+from blim_tpu_torch.core.numerics import einsum_f32, einsum_fp32, matmul_f32
 from blim_tpu_torch.kernels.attention import NEG_INF, multi_head_attention
 
 Params = Dict[str, Any]
@@ -265,6 +266,140 @@ def forward_packed_suffix(
                                         seg_ids, c.head_dim ** -0.5, prefix_mask=prefix_mask)
         hidden = _mlp(c, lp, _attn_out(c, lp, hidden, attn, ll, lora_scale))
     return rms_norm(hidden, params["norm"]["scale"], c.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# TVG: packed caption prefixes and flat-query suffixes
+# ---------------------------------------------------------------------------
+
+def _packed_self_attention(
+    q: torch.Tensor,        # (G, T, Hq, hd)
+    k: torch.Tensor,        # (G, T, Hkv, hd)
+    v: torch.Tensor,
+    seg_ids: torch.Tensor,  # (G, T) int; -1 = padding
+    scale: float,
+) -> torch.Tensor:
+    """Block-diagonal causal self-attention over a pack of independent
+    segments: a token sees the causally-earlier tokens of its own segment
+    only. Padding (seg -1) neither sees nor is seen and emits zeros. Scores
+    in fp32 from bf16 products; probabilities in v's dtype."""
+    g, t, hq, hd = q.shape
+    hkv = k.shape[2]
+    qr = q.reshape(g, t, hkv, hq // hkv, hd)
+    scores = einsum_f32("gqhud,gkhd->ghuqk", qr, k) * scale
+    valid = seg_ids >= 0
+    idx = torch.arange(t, device=q.device)
+    vis = ((seg_ids[:, :, None] == seg_ids[:, None, :])
+           & (idx[:, None] >= idx[None, :])[None] & valid[:, None, :])
+    scores = scores.masked_fill(~vis[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("ghuqk,gkhd->gqhud", probs, v)
+    out = out * valid[:, :, None, None, None].to(out.dtype)
+    return out.reshape(g, t, hq, hd)
+
+
+def forward_collect_kv_packed(
+    params: Params,
+    config: Qwen2Config,
+    inputs_embeds: torch.Tensor,   # (G, T, D) segments packed back to back
+    seg_ids: torch.Tensor,         # (G, T) int; -1 = padding
+    position_ids: torch.Tensor,    # (G, T) absolute positions of each segment's tokens
+    *,
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """forward_collect_kv over a pack of independent variable-length
+    prefixes (block-diagonal causal attention by segment id). Each
+    segment's K/V equals that prefix run alone at the same positions.
+    Returns (final hidden (G,T,D), {"k": (L,G,T,Hkv,hd), "v": ...})."""
+    c = config
+    cos, sin = rope_cos_sin(position_ids, c.head_dim, c.rope_theta)
+    hidden = inputs_embeds
+    ks, vs = [], []
+    for i in range(c.num_hidden_layers):
+        lp = _layer_slice(params["layers"], i)
+        ll = _layer_slice(None if lora is None else lora["layers"], i)
+        x = rms_norm(hidden, lp["input_layernorm"]["scale"], c.rms_norm_eps)
+        q, k, v = _qkv(c, lp, x, cos, sin, ll, lora_scale)
+        attn = _packed_self_attention(q, k, v, seg_ids, c.head_dim ** -0.5)
+        hidden = _mlp(c, lp, _attn_out(c, lp, hidden, attn, ll, lora_scale))
+        ks.append(k)
+        vs.append(v)
+    hidden = rms_norm(hidden, params["norm"]["scale"], c.rms_norm_eps)
+    return hidden, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _grouped_prefix_attention(
+    q: torch.Tensor,        # (G, K, W, Hq, hd) K suffixes per prefix group
+    k_suf: torch.Tensor,    # (G, K, W, Hkv, hd)
+    v_suf: torch.Tensor,
+    k_pre: torch.Tensor,    # (G, P, Hkv, hd)
+    v_pre: torch.Tensor,
+    suffix_mask: torch.Tensor,   # (G, K, W) 1 = real suffix token
+    scale: float,
+    prefix_mask: Optional[torch.Tensor] = None,   # (G, P) or (G, K, P); None = all visible
+) -> torch.Tensor:
+    """Attention of suffix queries over [shared prefix | own suffix]. The
+    prefix K/V broadcasts over the K suffixes of a group inside the product.
+    A 3-D prefix mask gives each suffix its own prefix visibility (the
+    packed TVG path: the K queries of a group belong to different segments
+    of one packed prefix row). Suffix keys are causal and masked. Scores
+    from fp32 operands (not bf16 products), softmax in fp32; a masked
+    suffix query emits zeros."""
+    g, kk, w, hq, hd = q.shape
+    hkv = k_suf.shape[3]
+    qf = q.float().reshape(g, kk, w, hkv, hq // hkv, hd) * scale
+    s_pre = einsum_fp32("gkwhud,gphd->gkhuwp", qf, k_pre)
+    s_suf = einsum_fp32("gkwhud,gkxhd->gkhuwx", qf, k_suf)
+    if prefix_mask is not None:
+        pm = prefix_mask.bool()
+        pm = pm[:, :, None, None, None, :] if pm.ndim == 3 else pm[:, None, None, None, None, :]
+        s_pre = s_pre.masked_fill(~pm, NEG_INF)
+    idx = torch.arange(w, device=q.device)
+    vis = (idx[:, None] >= idx[None, :]) & suffix_mask.bool()[:, :, None, None, None, :]
+    s_suf = s_suf.masked_fill(~vis, NEG_INF)
+    p_len = s_pre.shape[-1]
+    p = torch.softmax(torch.cat([s_pre, s_suf], dim=-1), dim=-1)
+    out = torch.einsum("gkhuwp,gphd->gkwhud", p[..., :p_len].to(v_pre.dtype), v_pre)
+    out = out + torch.einsum("gkhuwx,gkxhd->gkwhud", p[..., p_len:].to(v_suf.dtype), v_suf)
+    out = out * suffix_mask[:, :, :, None, None, None].to(out.dtype)
+    return out.reshape(g, kk, w, hq, hd)
+
+
+def forward_suffix_with_prefix(
+    params: Params,
+    config: Qwen2Config,
+    suffix_embeds: torch.Tensor,          # (G, K, W, D)
+    prefix_kv: Dict[str, torch.Tensor],   # k/v: (L, G, P, Hkv, hd)
+    suffix_mask: torch.Tensor,            # (G, K, W)
+    position_offset: int,                 # global position of suffix token 0
+    *,
+    prefix_mask: Optional[torch.Tensor] = None,   # (G, P) or (G, K, P)
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+) -> torch.Tensor:
+    """Decode K suffixes per shared prefix -> hidden (G, K, W, D). Suffix
+    token j sits at position_offset + j in every suffix."""
+    c = config
+    G, K, W, D = suffix_embeds.shape
+    pos = (torch.arange(W, device=suffix_embeds.device) + position_offset)[None]
+    cos, sin = rope_cos_sin(pos, c.head_dim, c.rope_theta)   # (1, W, hd), broadcast over G*K
+
+    def grouped(t):
+        return t.reshape(G, K, W, *t.shape[2:])
+
+    hidden = suffix_embeds.reshape(G * K, W, D)
+    for i in range(c.num_hidden_layers):
+        lp = _layer_slice(params["layers"], i)
+        ll = _layer_slice(None if lora is None else lora["layers"], i)
+        x = rms_norm(hidden, lp["input_layernorm"]["scale"], c.rms_norm_eps)
+        q, k, v = _qkv(c, lp, x, cos, sin, ll, lora_scale)
+        attn = _grouped_prefix_attention(grouped(q), grouped(k), grouped(v), prefix_kv["k"][i],
+                                         prefix_kv["v"][i], suffix_mask, c.head_dim ** -0.5,
+                                         prefix_mask=prefix_mask)
+        attn = attn.reshape(G * K, W, *attn.shape[3:])
+        hidden = _mlp(c, lp, _attn_out(c, lp, hidden, attn, ll, lora_scale))
+    return rms_norm(hidden, params["norm"]["scale"], c.rms_norm_eps).reshape(G, K, W, D)
 
 
 def lm_head_kernel(params: Params) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""VideoChat-Flash scoring and training surface (port of the VTG scoring
-half and the training forwards of blim_tpu/models/videochat_flash.py).
+"""VideoChat-Flash scoring and training surface (port of the VTG and TVG
+scoring and the training forwards of blim_tpu/models/videochat_flash.py).
 
-Batch dict contract of the naive path (`score_vtg`):
+Batch dict contract of the naive paths (`score_vtg`, `score_tvg`):
   input_ids       (B, T) int   layout token ids (video slots arbitrary)
   attention_mask  (B, T) int   1 = real token
   cpn_mask        (B, T) int   CPN prior visibility mask
   video           (B, clips, tokens_per_clip, mm) cached features
-  window_labels   (B, W) int   labels of the static label window
+  window_labels   (B, W) int   VTG only: labels of the static label window
+  video_label     (B,) int     TVG only: vocabulary index of the row's video
 
 Training forwards (`vtg_hidden`, `tvg_hidden`) take the LoRA tree, LoRA
 dropout on the projector (drawn from a `torch.Generator`) and `remat`
@@ -15,7 +16,10 @@ dropout on the projector (drawn from a `torch.Generator`) and `remat`
 Shared-prefix scoring: every VTG pair that shares a video also shares the
 whole [pre][video][post] prefix, so the prefix runs once per video and only
 the caption suffixes run per pair. The CPN prior masks the video out of
-attention, so its text-only prefix runs once per dataset.
+attention, so its text-only prefix runs once per dataset. In the TVG
+direction the caption is the prefix: caption prefixes are packed back to
+back into rows (`tvg_pack_prefix_kv`) and each (caption, video) pair is a
+clips-wide query against its caption's segment (`score_tvg_packed`).
 """
 
 from __future__ import annotations
@@ -182,3 +186,72 @@ def score_vtg_packed(params: Params, config: ModelConfig,
     total = torch.einsum("gts,gt->gs", seg_oh, ce)
     count = torch.einsum("gts,gt->gs", seg_oh, valid.float())
     return -(total / count.clamp(min=1.0))
+
+
+def score_tvg(params: Params, config: ModelConfig, batch: Dict[str, torch.Tensor],
+              video_vocab: torch.Tensor,      # (V, clips, mm)
+              video_start: int, gather_start: int, *, cpn: bool = False,
+              lora: Optional[Params] = None, lora_scale: float = 0.0) -> torch.Tensor:
+    """P(video | caption) per row through the visual_head classifier over the
+    video vocabulary, or the CPN prior P(video) with cpn=True (the caption
+    masked down to the instruction head). The batch carries `video_label`
+    (B,), the vocabulary index of each row's video. The naive full-sequence
+    baseline the packed-prefix path is held to."""
+    mask = batch["cpn_mask"] if cpn else batch["attention_mask"]
+    hidden = tvg_hidden(params, config, batch["input_ids"], mask, batch["video"], video_start,
+                        lora=lora, lora_scale=lora_scale)
+    clip_hidden = hidden[:, gather_start: gather_start + config.num_clips]
+    logits = criteria.tvg_clip_logits(clip_hidden, params["visual_head"]["kernel"], video_vocab)
+    return criteria.tvg_likelihood(logits, batch["video_label"])
+
+
+def tvg_pack_prefix_kv(params: Params, config: ModelConfig,
+                       pack_ids: torch.Tensor,   # (G, T) caption prefixes packed back to back
+                       pack_seg: torch.Tensor,   # (G, T) segment per token; -1 = padding
+                       pack_pos: torch.Tensor,   # (G, T) absolute positions (P_full - L_c + j)
+                       *, lora: Optional[Params] = None, lora_scale: float = 0.0):
+    """Packed-prefix K/V (L, G, T, Hkv, hd) for the TVG direction: many
+    variable-length caption prefixes share one row with block-diagonal
+    causal attention. The TVG prefix is pure text, so no video splice."""
+    llm_lora, _ = _lora_parts(lora)
+    emb = qwen2.embed_tokens(params["llm"], pack_ids)
+    _, kv = qwen2.forward_collect_kv_packed(params["llm"], config.llm, emb, pack_seg, pack_pos,
+                                            lora=llm_lora, lora_scale=lora_scale)
+    return kv
+
+
+def score_tvg_packed(params: Params, config: ModelConfig,
+                     pack_kv,                   # k/v: (L, G, T, Hkv, hd) packed prefix K/V
+                     pack_seg: torch.Tensor,    # (G, T) segment per pack token
+                     q_seg: torch.Tensor,       # (G, Q) segment per query; -1 = unused slot
+                     q_first: torch.Tensor,     # (G, Q) last text token of the query's caption
+                     q_video: torch.Tensor,     # (G, Q, clips, D) per-video TVG embeddings
+                     q_label: torch.Tensor,     # (G, Q) vocabulary index of each query's video
+                     video_vocab: torch.Tensor,  # (V, clips, mm)
+                     position_offset: int,      # global position of suffix token 0 (P_full)
+                     *, cpn: bool = False, lora: Optional[Params] = None,
+                     lora_scale: float = 0.0) -> torch.Tensor:
+    """Packed-TVG likelihood, or with cpn the prior -> (G, Q): a flat query
+    list per pack, each query attending to its own segment of the packed
+    prefix. The suffix is [last text token | clips - 1 clip embeddings]
+    (W = clips): hidden positions 0..clips-1 are all the TVG head reads, and
+    causality makes the last clip and the terminators unreadable by them.
+    With cpn the last text token (suffix column 0) is masked."""
+    g, qn = q_seg.shape
+    clips = config.num_clips
+    emb_dtype = params["llm"]["embed_tokens"]["embedding"].dtype
+    llm_lora, _ = _lora_parts(lora)
+    first = qwen2.embed_tokens(params["llm"], q_first)[:, :, None, :]          # (G,Q,1,D)
+    vid = q_video.to(emb_dtype)[:, :, : clips - 1]                            # (G,Q,clips-1,D)
+    suffix = torch.cat([first.to(emb_dtype), vid], dim=2)                     # (G,Q,clips,D)
+    valid = q_seg >= 0
+    suffix_mask = valid[:, :, None].to(torch.int32).repeat(1, 1, clips)
+    if cpn:
+        suffix_mask[:, :, 0] = 0
+    prefix_mask = (pack_seg[:, None, :] == q_seg[:, :, None]) & valid[:, :, None]
+    hidden = qwen2.forward_suffix_with_prefix(
+        params["llm"], config.llm, suffix, pack_kv, suffix_mask, position_offset,
+        prefix_mask=prefix_mask, lora=llm_lora, lora_scale=lora_scale)
+    clip_hidden = hidden.reshape(g * qn, clips, -1)
+    logits = criteria.tvg_clip_logits(clip_hidden, params["visual_head"]["kernel"], video_vocab)
+    return criteria.tvg_likelihood(logits, q_label.reshape(-1)).reshape(g, qn)

@@ -21,23 +21,34 @@ Phases, one line each (all numbers beside the card's name and power limit):
               the kernel launch counts of the timed run must match the path;
   4. packed   packed shared-prefix scores against the naive full-sequence
               path on the card;
-  5. train-kernels  B1-lse, B3 (flash_dq) and B4 (flash_dkv) against their
+  5. finetuned  the fine-tuned rerank flow on phase 3's weights with a LoRA
+              tree (r 8, alpha 32, B factors seeded off zero) on the LLM and
+              the projector made on the card from SEED: VTG and TVG packed
+              scoring with both CPN priors, the six score matrices; untimed at
+              WARM_ITEMS, timed at ITEMS, B1's launches checked against the
+              VTG prefix forwards (the TVG packed prefixes and flat queries
+              are plain PyTorch, as they are plain XLA in the JAX package);
+              then the packed TVG scores and priors of 8 pairs against the
+              naive full-sequence score_tvg, and the same pairs re-scored
+              with a planted segment, position or bf16-product fault, to show
+              what the tolerance can see;
+  6. train-kernels  B1-lse, B3 (flash_dq) and B4 (flash_dkv) against their
               plain versions at the train step's VTG and TVG shapes, timed
               like phase 2 (library yardstick: SDPA forward, and SDPA's
               backward for dq + dk + dv together);
-  6. train    the 7B LoRA train step (VTG + TVG losses, backward through the
+  7. train    the 7B LoRA train step (VTG + TVG losses, backward through the
               frozen 7B with per-layer recompute, AdamW) on phase 3's
               weights: TRAIN_WARM untimed steps, then TRAIN_STEPS timed
               ones whose launch counts must match the path;
-  7. gradcheck  at full width and GRADCHECK_LAYERS layers, the loss and the
+  8. gradcheck  at full width and GRADCHECK_LAYERS layers, the loss and the
               LoRA gradients through the kernels against the same step
               through the plain attention;
-  8. vit-kernel  B2 (flash_fwd_dense, d = 64, dense non-causal) against its
+  9. vit-kernel  B2 (flash_fwd_dense, d = 64, dense non-causal) against its
               plain version at VIT_CLIPS clips of the ViT's (clips, 3136, 16,
               64), q, k, v strided views of one packed qkv tensor; timed like
               phase 2 (library yardstick: SDPA), and kernel and SDPA again at
               the featurizer's EXTRACT_B x 4 clips;
-  9. extract  the UMT ViT-L tower at res448, full depth, in bf16 from SEED on
+ 10. extract  the UMT ViT-L tower at res448, full depth, in bf16 from SEED on
               the card, with ToMe: the featurizer at EXTRACT_B videos (one
               untimed batch, EXTRACT_TIMED timed in a pipeline, launches
               checked); the tower through B2 against the same tower through
@@ -77,8 +88,16 @@ LSE_TOL = 1e-3       # |kernel - plain| lse on query-mask-1 rows: fp32 sums of
 GRAD_TOL = 3e-2      # |kernel - plain| dq, dk, dv over max|plain|: the kernels
                      # round P and dS to bf16 before their tensor-core products
                      # and write bf16; the plain version keeps fp32 to the end
-PACKED_TOL = 5e-2    # max |packed - naive| on per-caption mean CE (~12)
-                     # after 28 bf16 layers computed in a different order
+PACKED_TOL = 5e-2    # max |packed - naive| on per-caption mean CE (~12) after 28
+                     # bf16 layers computed in a different order
+TVG_TOL = 1.5e-2     # max |packed - naive| TVG score and prior (per-clip mean CE
+                     # over the vocabulary, ~log ITEMS) on 8 pairs: above the
+                     # error of a right port, below what a planted segment or
+                     # position fault moves (phase 5 checks both). On an H100
+                     # with the seeded 7B: right port up to ~6e-3, segment
+                     # fault ~7e-2, position one off ~4e-2
+LORA_B_STD = 0.02    # the smoke's LoRA B factors, seeded off zero (as the CPU
+                     # tests make them) so the adapters add to every product
 TOWER_TOL = 5e-2     # |kernel - plain| / |plain| (Frobenius) of the ViT-L tower
                      # output: each block's attention differs by about one bf16
                      # ulp (0.2-0.4%, P and O rounded at other points) and 23
@@ -554,9 +573,34 @@ def setup_flow():
     return cfg, params, tok, layout
 
 
-def run_flow(flow, n, timings=None):
-    """One zero-shot evaluation (CPN on, TOPK) of n synthetic items on a
-    fresh engine, synchronized. Returns (inputs, engine, t2v, v2t, seconds)."""
+def setup_finetuned(flow):
+    """What the fine-tuned flow adds to the flow's weights, as the JAX
+    package's bench sets it up: a LoRA tree (LoraConfig(): r 8, alpha 32) on
+    the LLM and the projector, made on the card from SEED, its scale, and
+    the TVG layout. The B factors, zero at init, are drawn from the same
+    generator (std LORA_B_STD) so that the checks see the adapters."""
+    import torch
+
+    from blim_tpu_torch.adapters.lora import LoraConfig, init_llm_lora, init_projector_lora
+    from blim_tpu_torch.data.prompts import make_tvg_layout
+
+    cfg, _, tok, _ = flow
+    lcfg = LoraConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lora = {"llm": init_llm_lora(gen, cfg.llm, lcfg),
+            "projector": init_projector_lora(gen, cfg.mm_hidden_size, cfg.llm.hidden_size, lcfg)}
+    for name, leaf in _named_leaves(lora):
+        if name.rsplit("/", 1)[-1] == "b":
+            leaf.normal_(0.0, LORA_B_STD, generator=gen)
+    return dict(lora=lora, lora_scale=lcfg.scale,
+                tvg_layout=make_tvg_layout(tok, cfg.num_clips, CAPTION_TOKENS))
+
+
+def run_flow(flow, n, timings=None, finetuned=None):
+    """One evaluation (CPN on, TOPK) of n synthetic items on a fresh engine,
+    synchronized: the zero-shot flow, or with `finetuned` (setup_finetuned)
+    the fine-tuned flow, TVG directions and LoRA on. Returns (inputs,
+    engine, t2v, v2t, seconds)."""
     import torch
 
     from blim_tpu_torch.engine.evaluation import evaluation
@@ -564,11 +608,13 @@ def run_flow(flow, n, timings=None):
 
     cfg, params, tok, layout = flow
     inputs = make_inputs(cfg, n)
-    engine = RerankEngine(params, cfg, layout, device="cuda")
+    ft = finetuned or {}
+    engine = RerankEngine(params, cfg, layout, ft.get("tvg_layout"), lora=ft.get("lora"),
+                          lora_scale=ft.get("lora_scale", 0.0), device="cuda")
     torch.cuda.synchronize()
     t = time.time()
-    t2v, v2t = evaluation(engine, inputs, tok, "MSRVTT", topk=TOPK, cpn=True, has_tvg=False,
-                          verbose=False, timings=timings)
+    t2v, v2t = evaluation(engine, inputs, tok, "MSRVTT", topk=TOPK, cpn=True,
+                          has_tvg=finetuned is not None, verbose=False, timings=timings)
     torch.cuda.synchronize()
     return inputs, engine, t2v, v2t, time.time() - t
 
@@ -671,6 +717,163 @@ def phase_packed(st, card):
         fail("naive scores are not finite")
     if max(err, err_prior) > PACKED_TOL:
         fail(f"packed vs naive disagree: {err:.3e} / {err_prior:.3e} > {PACKED_TOL}")
+
+
+def tvg_controls(engine, inputs, tok, rows, cols, naive, naive_prior):
+    """The pairs (rows, cols) re-scored through the packed TVG engine, clean
+    and with one fault planted at a time -> {name: (max|d| scores, max|d|
+    priors)} against the naive scores. Faults: 'segment', each query reads
+    the next segment of its pack row (another caption's prefix, as a
+    segment mask off by one would); 'position', the flat-query suffix one
+    position late; 'bf16', the flat-query attention scores from bf16
+    products with fp32 accumulation where the JAX package takes fp32
+    operands."""
+    import torch
+
+    from blim_tpu_torch.core.numerics import einsum_f32
+    from blim_tpu_torch.engine.rerank import CaptionBank
+    from blim_tpu_torch.models import qwen2
+    from blim_tpu_torch.models import videochat_flash as vcf
+
+    banks = engine.upload(CaptionBank.build_tvg(inputs.captions, tok, engine.tvg_layout),
+                          inputs.features)
+    vocab = engine.video_vocab(banks)
+    score_tvg_packed, einsum_fp32 = vcf.score_tvg_packed, qwen2.einsum_fp32
+
+    def next_segment(params, config, kv, pack_seg, q_seg, *args, **kw):
+        n_seg = (pack_seg.amax(dim=1, keepdim=True) + 1).clamp(min=1)
+        q_seg = torch.where(q_seg >= 0, (q_seg + 1) % n_seg, q_seg)
+        return score_tvg_packed(params, config, kv, pack_seg, q_seg, *args, **kw)
+
+    def late_position(*args, **kw):
+        *front, position_offset = args
+        return score_tvg_packed(*front, position_offset + 1, **kw)
+
+    def bf16_products(equation, a, b):
+        return einsum_f32(equation, a.bfloat16(), b.bfloat16())
+
+    faults = {"clean": (vcf, "score_tvg_packed", score_tvg_packed),
+              "segment": (vcf, "score_tvg_packed", next_segment),
+              "position": (vcf, "score_tvg_packed", late_position),
+              "bf16": (qwen2, "einsum_fp32", bf16_products)}
+    out = {}
+    for name, (module, attr, fn) in faults.items():
+        setattr(module, attr, fn)
+        try:
+            s, p = engine.score_pairs_tvg_packed(banks, vocab, rows, cols, with_prior=True)
+        finally:
+            vcf.score_tvg_packed, qwen2.einsum_fp32 = score_tvg_packed, einsum_fp32
+        out[name] = (float(np.abs(s - naive).max()), float(np.abs(p - naive_prior).max()))
+    return out
+
+
+def phase_finetuned(st, card):
+    """The fine-tuned flow on phase 3's weights: an untimed run at
+    WARM_ITEMS, a timed run at ITEMS with B1's launches checked (the VTG
+    prefix forwards launch it; the TVG packed prefixes launch nothing), the
+    six matrices checked, the recall tables printed, then 8 pairs' packed
+    TVG scores and priors against the naive full-sequence score_tvg, and
+    tvg_controls' planted faults, of which the segment and the position
+    fault must exceed TVG_TOL."""
+    import torch
+
+    from blim_tpu_torch.engine.rerank import CaptionBank, topk_pairs
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.models import videochat_flash as vcf
+    from blim_tpu_torch.scoring.fusion import all_scoring_results
+
+    t0 = time.time()
+    flow = st["flow"]
+    cfg, params, tok, _ = flow
+    ft = setup_finetuned(flow)
+    warm_s = run_flow(flow, WARM_ITEMS, finetuned=ft)[-1]
+    print(f"[finetuned] LoRA r 8 alpha 32 on the LLM and the projector; untimed warm run: "
+          f"{WARM_ITEMS} items in {warm_s:.2f}s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    inputs, engine, t2v, v2t, elapsed = run_flow(flow, ITEMS, finetuned=ft)
+    launches = fa.launches
+    others = sum(fa.counts().values()) - launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = ITEMS
+    layers = cfg.llm.num_hidden_layers
+    expected = layers * engine.prefix_forwards
+    print(f"[finetuned] timed run: {n} queries in {elapsed:.3f}s = {n / elapsed:.3f} q/s, "
+          f"peak {peak_gb:.2f} GiB, {engine.steps} steps, VTG prefix forwards "
+          f"{engine.prefix_forwards} ({engine.prefix_forwards - 1} video-prefix steps + 1 prior "
+          f"prefix), TVG packed-prefix forwards {engine.tvg_prefix_forwards}, flash_fwd "
+          f"launches {launches} (expected {expected} = {layers} x {engine.prefix_forwards}) "
+          f"[{card}]", flush=True)
+    if launches != expected or launches == 0 or others:
+        fail(f"fine-tuned flow: flash_fwd launches {launches} != expected {expected}, or "
+             f"another kernel launched ({fa.counts()})")
+    if engine.tvg_prefix_forwards == 0:
+        fail("fine-tuned flow ran no TVG packed-prefix forward")
+    v_rows, v_cols = topk_pairs(inputs.v2t_iv2, TOPK)
+    t_rows, t_cols = topk_pairs(inputs.t2v_iv2, TOPK)
+    grids = {"v2t": (v_rows, v_cols), "t2v": (t_rows, t_cols)}
+    scored = [("v2t", "candidate_likelihood"), ("v2t", "candidate_prior"),
+              ("v2t", "query_likelihood"), ("t2v", "query_likelihood"),
+              ("t2v", "candidate_likelihood"), ("t2v", "candidate_prior")]
+    mats = {"v2t": v2t, "t2v": t2v}
+    for direction, name in scored + [("v2t", "internvideo2"), ("t2v", "internvideo2")]:
+        if name not in mats[direction] or mats[direction][name].shape != (n, n):
+            fail(f"fine-tuned flow: {direction} {name} missing or not ({n}, {n})")
+    for direction, name in scored:
+        rows, cols = grids[direction]
+        cells = mats[direction][name][rows, cols]
+        if not np.isfinite(cells).all() or (cells == -100.0).any():
+            fail(f"fine-tuned {direction} {name}: a scored cell is non-finite or the -100 fill")
+    ids = {i: i for i in range(n)}
+    res = all_scoring_results(t2v, v2t, ids, ids, alpha=(0.0, 0.9), c=(1.0, 0.6, 0.8, 0.4),
+                              cpn=True, has_tvg=True)
+    print(f"[finetuned] recall r_mean (has_tvg): " + ", ".join(
+        f"{k} {v['r_mean']}" for k, v in res.items()), flush=True)
+
+    # packed against naive: 8 t2v cells (caption = row, video = column), 8
+    # captions, each with its first candidate
+    layout = ft["tvg_layout"]
+    first = np.arange(8) * TOPK
+    rows, cols = t_rows[first], t_cols[first]
+    bank = CaptionBank.build_tvg([inputs.captions[c] for c in rows], tok, layout)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    feats = dev(inputs.features).to(params["llm"]["embed_tokens"]["embedding"].dtype)
+    batch = {"input_ids": dev(bank.input_ids), "attention_mask": dev(bank.attention_mask),
+             "cpn_mask": dev(bank.cpn_mask), "video": feats[dev(cols)],
+             "video_label": dev(cols)}
+    with torch.no_grad():
+        vocab = vcf.make_video_vocab(feats.float())
+        naive, naive_prior = (
+            vcf.score_tvg(params, cfg, batch, vocab, layout.video_start,
+                          int(layout.gather_positions[0]), cpn=cpn, lora=ft["lora"],
+                          lora_scale=ft["lora_scale"]).float().cpu().numpy()
+            for cpn in (False, True))
+    packed = t2v["candidate_likelihood"][rows, cols]
+    packed_prior = t2v["candidate_prior"][rows, cols]
+    err = float(np.abs(packed - naive).max())
+    err_prior = float(np.abs(packed_prior - naive_prior).max())
+    print(f"[finetuned] 8 pairs, packed TVG vs naive score_tvg: max|d| likelihood {err:.3e}, "
+          f"prior {err_prior:.3e} (tol {TVG_TOL}); naive scores mean {naive.mean():.4f} std "
+          f"{naive.std():.3e} range {np.ptp(naive):.3e}, priors mean {naive_prior.mean():.4f} "
+          f"std {naive_prior.std():.3e} range {np.ptp(naive_prior):.3e} [{card}]", flush=True)
+    if not (np.isfinite(naive).all() and np.isfinite(naive_prior).all()):
+        fail("naive TVG scores are not finite")
+    if not (np.isfinite(packed).all() and np.isfinite(packed_prior).all()):
+        fail("packed TVG scores are not finite")
+    if max(err, err_prior) > TVG_TOL:
+        fail(f"packed vs naive TVG disagree: {err:.3e} / {err_prior:.3e} > {TVG_TOL}")
+    controls = tvg_controls(engine, inputs, tok, rows, cols, naive, naive_prior)
+    print("[finetuned] the 8 pairs re-scored packed, max|packed - naive| likelihood / prior: "
+          + ", ".join(f"{k} {s:.3e} / {p:.3e}" for k, (s, p) in controls.items())
+          + f" (tol {TVG_TOL}) [{card}]", flush=True)
+    if max(controls["clean"]) > TVG_TOL:
+        fail(f"the 8 pairs re-scored packed disagree with naive: {controls['clean']}")
+    for fault in ("segment", "position"):
+        if max(controls[fault]) <= TVG_TOL:
+            fail(f"a planted {fault} fault moved the TVG scores by {controls[fault]}, not "
+                 f"above {TVG_TOL}: the packed-vs-naive check cannot see it")
+    print(f"[time] phase 5 (finetuned) took {time.time() - t0:.1f}s", flush=True)
+    return dict(launches=launches, qps=n / elapsed)
 
 
 def _named_leaves(tree, prefix=""):
@@ -1149,19 +1352,20 @@ def main():
     record = phase_kernels(card)
     st = phase_slice(card)
     phase_packed(st, card)
+    phase_finetuned(st, card)
     t0 = time.time()
     train_records = phase_train_kernels(card)
     train = phase_train(st, card)
     phase_gradcheck(st, card)
-    print(f"[time] phases 5-7 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
+    print(f"[time] phases 6-8 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
           flush=True)
     b1_launches = st["launches"]
-    del st                      # the 7B weights: phases 8-9 measure their own peak memory
+    del st                      # the 7B weights: phases 9-10 measure their own peak memory
     torch.cuda.empty_cache()
     t0 = time.time()
     vit_record = phase_vit_kernel(card)
     extract_st = phase_extract(card)
-    print(f"[time] phases 8-9 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
+    print(f"[time] phases 9-10 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
 
     src = "blim_tpu_torch/kernels/csrc/"
     ref = "blim_tpu/kernels/flash_attention.py:"

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's zero-shot rerank flow, its 7B LoRA
-train step, or its video featurizer, on one GPU.
+"""Where the time goes in the port's zero-shot or fine-tuned rerank flow,
+its 7B LoRA train step, or its video featurizer, on one GPU.
 
-    python3 scripts/profile_torch_flow.py [--train | --extract] [--out DIR]
+    python3 scripts/profile_torch_flow.py [--finetuned | --train | --extract] [--out DIR]
 
-Without --train: runs chip_smoke.py's zero-shot flow (Qwen2-7B in bf16 from
+Without a mode: runs chip_smoke.py's zero-shot flow (Qwen2-7B in bf16 from
 a seed on the card, CPN on, topk 16) once untimed at its WARM_ITEMS, then
 once under torch.profiler at its ITEMS, and prints the wall time of each
-pass of the flow. With --train: chip_smoke.py's train step (B = 4, caption
+pass of the flow. With --finetuned: the same for chip_smoke.py's fine-tuned
+flow (its LoRA tree on the same weights, the TVG directions and both CPN
+priors on). With --train: chip_smoke.py's train step (B = 4, caption
 budget 96, per-layer recompute, AdamW) for TRAIN_WARM untimed steps, then
 TRAIN_STEPS steps timed without the profiler and TRAIN_STEPS under it.
 With --extract: the UMT ViT-L + ToMe featurizer at chip_smoke.py's
@@ -22,7 +24,7 @@ device-busy share. All print the device-busy share (summed
 kernel time over wall time; the work runs on one stream) and the kernels
 that take the most device time, grouped by the layer that launches them.
 With --out, the full kernel table goes to DIR/profile.txt
-(profile_train.txt, profile_extract.txt).
+(profile_finetuned.txt, profile_train.txt, profile_extract.txt).
 Needs a CUDA GPU and the kernel toolchain, like chip_smoke.py.
 """
 
@@ -44,7 +46,7 @@ GROUPS = (
     ("flash_fwd (B1 / B1-lse, prefix or train attention forward)", ("flash_fwd",)),
     ("flash_dq (B3, attention backward dq)", ("flash_dq",)),
     ("flash_dkv (B4, attention backward dk, dv)", ("flash_dkv",)),
-    ("matrix products (7B linears, LM head, packed attention)",
+    ("matrix products (7B linears, LM head, packed and TVG attention)",
      ("gemm", "cutlass", "sm90_xmma", "sm80_xmma", "cublas", "nvjet", "matmul")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reductions", ("reduce",)),
@@ -163,6 +165,8 @@ def end_to_end_busy(chip_smoke, cfg, vit):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--finetuned", action="store_true",
+                      help="profile the fine-tuned rerank flow (TVG directions, LoRA)")
     mode.add_argument("--train", action="store_true", help="profile the LoRA train step")
     mode.add_argument("--extract", action="store_true", help="profile the video featurizer")
     ap.add_argument("--out", help="directory for the full kernel table")
@@ -198,12 +202,14 @@ def main():
             wall = train_steps(chip_smoke, tr, flow[1], n)
     else:
         flow = chip_smoke.setup_flow()
-        chip_smoke.run_flow(flow, chip_smoke.WARM_ITEMS)
+        ft = chip_smoke.setup_finetuned(flow) if args.finetuned else None
+        chip_smoke.run_flow(flow, chip_smoke.WARM_ITEMS, finetuned=ft)
         timings = {}
         # device activity only: tracing every host-side op as well slows the
         # host enough to change what it measures
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, engine, _, _, wall = chip_smoke.run_flow(flow, chip_smoke.ITEMS, timings)
+            _, engine, _, _, wall = chip_smoke.run_flow(flow, chip_smoke.ITEMS, timings,
+                                                        finetuned=ft)
     kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                       if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
                      reverse=True)
@@ -229,9 +235,11 @@ def main():
               f"{1e3 * busy_s / n:.1f} ms/step ({100 * busy_s / wall:.1f}% of the profiled "
               f"wall) [{card}]")
     else:
-        print(f"[profile] {chip_smoke.ITEMS} queries, topk {chip_smoke.TOPK}: wall {wall:.3f}s "
-              f"under the profiler, device busy {busy_s:.3f}s ({100 * busy_s / wall:.1f}%), "
-              f"{engine.steps} steps [{card}]")
+        flow_name = "fine-tuned" if args.finetuned else "zero-shot"
+        print(f"[profile] {flow_name} flow, {chip_smoke.ITEMS} queries, topk {chip_smoke.TOPK}: "
+              f"wall {wall:.3f}s under the profiler, device busy {busy_s:.3f}s "
+              f"({100 * busy_s / wall:.1f}%), {engine.steps} steps, {engine.prefix_forwards} VTG "
+              f"and {engine.tvg_prefix_forwards} TVG prefix forwards [{card}]")
         prev = 0.0
         for name, t in sorted(timings.items(), key=lambda kv: kv[1]):
             print(f"[profile]   pass {name:<12} ends at {t:.3f}s (+{t - prev:.3f}s)")
@@ -248,7 +256,7 @@ def main():
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         name = ("profile_train.txt" if args.train else "profile_extract.txt" if args.extract
-                else "profile.txt")
+                else "profile_finetuned.txt" if args.finetuned else "profile.txt")
         (out / name).write_text(
             f"{card}\n" + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
 

@@ -280,3 +280,99 @@ def test_train_loader_copy_matches(n, batch, shards, drop_last):
             assert len(tb) == len(jb)
             for a, b in zip(tb, jb):
                 np.testing.assert_array_equal(a, b)
+
+
+def test_tvg_caption_bank_copy_matches():
+    jl = jprompts.make_tvg_layout(JTokenizer(), 4, max_caption_tokens=24)
+    tl = tprompts.make_tvg_layout(TTokenizer(), 4, max_caption_tokens=24)
+    j = jrerank.CaptionBank.build_tvg(CAPTIONS + [LONG], JTokenizer(), jl)
+    t = trerank.CaptionBank.build_tvg(CAPTIONS + [LONG], TTokenizer(), tl)
+    for f in ("input_ids", "attention_mask", "cpn_mask", "prefix_ids", "prefix_mask",
+              "prefix_cpn", "first_ids"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f), err_msg=f)
+        assert getattr(t, f).dtype == getattr(j, f).dtype, f
+
+
+@pytest.mark.parametrize("prefix_len", [40, 249, 384, 512, 513, 900])
+def test_default_tvg_classes_and_q_buckets_copy_match(prefix_len):
+    t = trerank.default_tvg_pack_classes(prefix_len)
+    assert t == jrerank.default_tvg_pack_classes(prefix_len)
+    assert trerank.default_tvg_q_buckets(t) == jrerank.default_tvg_q_buckets(t)
+
+
+@pytest.mark.parametrize("classes", [((64, 20),), ((128, 33), (256, 64)), ((96, 32), (512, 200))])
+def test_default_tvg_q_buckets_copy_matches(classes):
+    assert trerank.default_tvg_q_buckets(classes) == jrerank.default_tvg_q_buckets(classes)
+
+
+def _tvg_pairs(seed, n_caps=30, n_vids=50):
+    rng = np.random.default_rng(seed)
+    seg_lens = rng.integers(20, 250, n_caps).astype(np.int32)
+    k = rng.integers(1, 45 if seed < 2 else 400, n_caps)   # seed 2 splits captions past 160
+    cap = np.repeat(np.arange(n_caps), k)
+    vid = rng.integers(0, n_vids, len(cap))
+    order = rng.permutation(len(cap))   # pairs arrive in no particular order
+    return cap[order], vid[order], seg_lens
+
+
+def _plain_tvg_packs(out):
+    return [(size, qn, [[(c, v.tolist(), p.tolist()) for c, v, p in segs] for segs in packs])
+            for size, qn, packs in out]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("decoupled", [False, True], ids=["coupled", "q_buckets"])
+def test_build_tvg_packs_copy_matches(seed, decoupled):
+    cap, vid, seg_lens = _tvg_pairs(seed)
+    classes = trerank.default_tvg_pack_classes(249)
+    qb = trerank.default_tvg_q_buckets(classes) if decoupled else None
+    t = trerank.build_tvg_packs(cap, vid, seg_lens, classes, q_buckets=qb)
+    j = jrerank.build_tvg_packs(cap, vid, seg_lens, classes, q_buckets=qb)
+    assert _plain_tvg_packs(t) == _plain_tvg_packs(j)
+    # the head-only prior packs: every segment the same length
+    heads = np.full(len(seg_lens), 17, np.int32)
+    assert _plain_tvg_packs(trerank.build_tvg_packs(cap, vid, heads, classes, q_buckets=qb)) == \
+        _plain_tvg_packs(jrerank.build_tvg_packs(cap, vid, heads, classes, q_buckets=qb))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("head", [False, True], ids=["full", "head_len"])
+def test_assemble_tvg_packs_bulk_matches_loop_and_jax(seed, head):
+    """The port's bulk pack assembly against its own loop version and against
+    the JAX package's bulk version, with and without the prior's head_len."""
+    import types
+
+    tt, jt = TTokenizer(), JTokenizer()
+    tl = tprompts.make_tvg_layout(tt, 4, max_caption_tokens=48)
+    jl = jprompts.make_tvg_layout(jt, 4, max_caption_tokens=48)
+    rng = np.random.default_rng(seed)
+    caps = [" ".join(rng.choice(["a", "dog", "runs", "in", "the", "park", "slowly"],
+                                rng.integers(1, 12))) for _ in range(12)]
+    bank = trerank.CaptionBank.build_tvg(caps, tt, tl)
+    banks = {"prefix_ids_host": bank.prefix_ids,
+             "prefix_len_host": bank.prefix_mask.sum(axis=1).astype(np.int32)}
+    head_len = tl.tvg_prefix_length if head else None
+    cap = rng.integers(0, len(caps), 90)
+    vid = rng.integers(0, 20, 90)
+    lens = banks["prefix_len_host"] if not head else np.full(len(caps), head_len, np.int32)
+    classes = trerank.default_tvg_pack_classes(tl.prefix_len)
+    tself = types.SimpleNamespace(tvg_layout=tl)
+    jself = types.SimpleNamespace(tvg_layout=jl)
+    n_classes = 0
+    for size, qn, packs in trerank.build_tvg_packs(cap, vid, lens, classes,
+                                                   trerank.default_tvg_q_buckets(classes)):
+        n_classes += 1
+        *bulk, pair_pos = trerank.RerankEngine._assemble_tvg_packs_bulk(
+            tself, banks, packs, size, qn, head_len)
+        *jbulk, jpair_pos = jrerank.RerankEngine._assemble_tvg_packs_bulk(
+            jself, banks, packs, size, qn, head_len)
+        for a, b in zip(bulk, jbulk):
+            np.testing.assert_array_equal(a, b)
+        for i, segs in enumerate(packs):
+            *row, pp = trerank.RerankEngine._assemble_tvg_pack(tself, banks, segs, size, qn,
+                                                               head_len)
+            for a, b in zip(row, bulk):
+                np.testing.assert_array_equal(a, b[i])
+            np.testing.assert_array_equal(pp, pair_pos[i])
+            np.testing.assert_array_equal(pp, jpair_pos[i])
+    assert n_classes >= 1

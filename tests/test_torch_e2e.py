@@ -3,10 +3,12 @@ evaluation (CPN on, TVG off, shared-prefix packed scoring) on 8 items with
 topk 4 gives the same three score matrices and the same recall tables as
 the JAX evaluation on a one-device mesh. Tiny config, fp32 on the CPU;
 matrices within atol 1e-4 / rtol 1e-4 (fp32 through two layers and a
-152k-way CE), fill cells exactly -100, recall tables equal.
+152k-way CE), fill cells exactly -100, recall tables equal. The fine-tuned
+flow (TVG on) is held to JAX in tests/test_torch_finetuned.py.
 
-Also: the port imports nothing of JAX or the JAX package, and chip_smoke.py
-refuses to run without a GPU or without the package beside it."""
+Also: the TVG directions refuse an engine without a TVG layout, the port
+imports nothing of JAX or the JAX package, and chip_smoke.py refuses to
+run without a GPU or without the package beside it."""
 
 import ast
 import subprocess
@@ -122,8 +124,9 @@ def test_cpu_slice_never_launches_the_kernel(both):
     assert both["engine"].prefix_forwards > 1
 
 
-def test_tvg_directions_are_not_ported_yet(both):
-    with pytest.raises(NotImplementedError):
+def test_tvg_directions_need_a_tvg_layout(both):
+    assert both["engine"].tvg_layout is None
+    with pytest.raises(ValueError, match="tvg_layout"):
         teval.evaluation(both["engine"], None, None, "MSRVTT", has_tvg=True)
 
 
