@@ -1,13 +1,16 @@
 """Model configuration dataclasses (copy of blim_tpu/core/config.py).
 
-Defaults are the VideoChat-Flash-Qwen2-7B values. The HF-config readers stay
-in the JAX package until the port loads checkpoints.
+Defaults are the VideoChat-Flash-Qwen2-7B values. `from_hf_config_dict`
+ingests a VideoChat-Flash checkpoint's `config.json`, so a checkpoint
+directory carries its own configuration.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,3 +137,53 @@ def tiny_model_config(
         return_idx=-1,
     )
     return ModelConfig(llm=llm, vision=vision, mm_hidden_size=mm_hidden_size, num_clips=num_clips)
+
+
+def from_hf_config_dict(d: Dict[str, Any]) -> ModelConfig:
+    """Build a ModelConfig from a HuggingFace VideoChat-Flash config.json dict."""
+    llm = Qwen2Config(
+        vocab_size=d.get("vocab_size", 152064),
+        hidden_size=d.get("hidden_size", 3584),
+        intermediate_size=d.get("intermediate_size", 18944),
+        num_hidden_layers=d.get("num_hidden_layers", 28),
+        num_attention_heads=d.get("num_attention_heads", 28),
+        num_key_value_heads=d.get("num_key_value_heads", 4),
+        head_dim=d.get("head_dim", d.get("hidden_size", 3584) // d.get("num_attention_heads", 28)),
+        rope_theta=d.get("rope_theta", 1_000_000.0),
+        rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=d.get("max_position_embeddings", 32768),
+        tie_word_embeddings=d.get("tie_word_embeddings", False),
+        use_sliding_window=bool(d.get("use_sliding_window", False)),
+        sliding_window=d.get("sliding_window", 4096),
+        max_window_layers=d.get("max_window_layers", d.get("num_hidden_layers", 28)),
+    )
+    image_size = 448 if "umt-hd" in str(d.get("mm_vision_tower", "umt-hd")) else 224
+    vision = VisionConfig(
+        image_size=image_size,
+        num_frames=d.get("mm_local_num_frames", 4),
+        return_idx=d.get("mm_vision_select_layer", -2),
+    )
+    return ModelConfig(
+        llm=llm,
+        vision=vision,
+        mm_hidden_size=d.get("mm_hidden_size", 1024),
+        mm_local_num_frames=d.get("mm_local_num_frames", 4),
+        tokenizer_model_max_length=d.get("tokenizer_model_max_length"),
+        tokenizer_padding_side=d.get("tokenizer_padding_side", "left"),
+        mm_projector_type=d.get("mm_projector_type", "tome16_mlp_hd64"),
+        vision_encode_type=d.get("vision_encode_type", "video_image"),
+        mm_patch_merge_type=d.get("mm_patch_merge_type", "spatial_nopad"),
+        mm_newline_position=d.get("mm_newline_position", "nothing"),
+        mm_llm_compress=bool(d.get("mm_llm_compress", False)),
+        llm_compress_type=d.get("llm_compress_type", "attention"),
+        llm_compress_layer_list=tuple(d.get("llm_compress_layer_list", []) or []),
+        llm_image_token_ratio_list=tuple(
+            d.get("llm_image_token_ratio_list", [1.0]) or [1.0]
+        ),
+    )
+
+
+def load_model_config(model_path: str) -> ModelConfig:
+    """Load a ModelConfig from an HF checkpoint directory's config.json."""
+    with open(os.path.join(model_path, "config.json")) as f:
+        return from_hf_config_dict(json.load(f))

@@ -1,10 +1,16 @@
-"""Deterministic byte-level tokenizer with Qwen2 special-token ids (copy of
-`ByteFallbackTokenizer`, blim_tpu/data/tokenization.py). Synthetic runs and
-tests use it, so every layout and score path sees realistic id ranges."""
+"""Tokenizer loading and a deterministic fallback (copy of
+blim_tpu/data/tokenization.py).
+
+The real model uses the Qwen2 BPE tokenizer of the HF checkpoint, loaded
+through `transformers` when the checkpoint directory has tokenizer files.
+Without them (synthetic runs, tests) `ByteFallbackTokenizer` is a
+deterministic byte-level stand-in whose special tokens map to the real
+Qwen2 ids, so every layout and score path sees realistic id ranges."""
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional
 
 from blim_tpu_torch.core.constants import QWEN2_PAD_TOKEN_ID
 
@@ -60,3 +66,21 @@ class ByteFallbackTokenizer:
         if buf:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+def load_tokenizer(model_path: Optional[str] = None):
+    """HF tokenizer from a checkpoint directory that has tokenizer files,
+    else the byte fallback. `transformers` is imported only in the first
+    case, and its absence then raises. Sets pad_token_id = 151643 for Qwen
+    when the tokenizer has none."""
+    if model_path and os.path.isdir(model_path) and any(
+        os.path.exists(os.path.join(model_path, f))
+        for f in ("tokenizer.json", "vocab.json", "tokenizer.model")
+    ):
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(model_path, trust_remote_code=True)
+        if tok.pad_token_id is None and "qwen" in str(tok.name_or_path).lower():
+            tok.pad_token_id = QWEN2_PAD_TOKEN_ID
+        return tok
+    return ByteFallbackTokenizer()

@@ -1,16 +1,17 @@
-"""The epoch-level train loop (port of blim_tpu/engine/loop.py::train_one_epoch).
+"""Epoch-level train and eval loops (port of blim_tpu/engine/loop.py).
 
-Per batch: collate into the static layouts, move to the device, run the
-train step, and abort the whole run on a non-finite loss. Metrics are plain
-averages over the epoch. The metric logger and the evaluation epoch
-(`val_one_epoch`, which needs the 6-matrix flow) are not ported yet.
+Train: per batch, collate into the static layouts, move to the device, run
+the train step, abort the whole run on a non-finite loss, and log the
+losses and the step's learning rate through a MetricLogger; the epoch's
+averages come back. Eval: the 6-matrix evaluation over a dataset, fused
+into the recall tables of the five scorings.
 """
 
 from __future__ import annotations
 
 import math
 import sys
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +20,10 @@ from blim_tpu_torch.core.device import DeviceLike, resolve_device
 from blim_tpu_torch.data.collate import collate_train_batch
 from blim_tpu_torch.data.datasets import RetrievalDataset, TrainLoader
 from blim_tpu_torch.data.prompts import TVGLayout, VTGLayout
-
-METRICS = ("loss", "vtg_loss", "tvg_loss")
+from blim_tpu_torch.engine.evaluation import EvalInputs, evaluation
+from blim_tpu_torch.engine.rerank import RerankEngine
+from blim_tpu_torch.scoring import fusion
+from blim_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 
 def train_one_epoch(
@@ -39,13 +42,16 @@ def train_one_epoch(
     print_freq_div: int = 4,
     device: DeviceLike = "cuda",
 ):
-    """One pass over `loader` -> (state, {loss, vtg_loss, tvg_loss} averaged)."""
+    """One pass over `loader` -> (state, the epoch's averages of loss,
+    vtg_loss, tvg_loss and lr). The lr is the one the step's optimizer
+    applied (0 without an optimizer)."""
     dev = resolve_device(device)
-    n_batches = len(loader)
-    print_freq = max(n_batches // print_freq_div, 1)
-    sums = dict.fromkeys(METRICS, 0.0)
-    n = 0
-    for it, idx in enumerate(loader.batches(epoch)):
+    metric_logger = MetricLogger(delimiter="  ")
+    metric_logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
+    header = f"Epoch: [{epoch}]"
+    print_freq = max(len(loader) // print_freq_div, 1)
+
+    for idx in metric_logger.log_every(loader.batches(epoch), print_freq, header):
         batch_np = collate_train_batch(
             [dataset.captions[i] for i in idx],
             features[dataset.item_video_idx[idx]],
@@ -62,12 +68,60 @@ def train_one_epoch(
             # a non-finite loss aborts the whole run
             print(f"Loss is {loss}, stopping training")
             sys.exit(1)
-        for k in METRICS:
-            sums[k] += float(metrics[k])
-        n += 1
-        if it % print_freq == 0:
-            print(f"Epoch: [{epoch}] [{it}/{n_batches}] "
-                  + "  ".join(f"{k}: {float(metrics[k]):.4f}" for k in METRICS), flush=True)
-    averages: Dict[str, float] = {k: v / max(n, 1) for k, v in sums.items()}
-    print("Averaged stats:", "  ".join(f"{k}: {v:.4f}" for k, v in averages.items()))
-    return state, averages
+        optimizer = getattr(state, "optimizer", None)
+        metric_logger.update(
+            loss=loss,
+            vtg_loss=float(metrics["vtg_loss"]),
+            tvg_loss=float(metrics["tvg_loss"]),
+            lr=optimizer.param_groups[0]["lr"] if optimizer is not None else 0.0,
+        )
+
+    metric_logger.synchronize_between_processes()
+    print("Averaged stats:", metric_logger)
+    return state, {k: m.global_avg for k, m in metric_logger.meters.items()}
+
+
+def val_one_epoch(
+    engine: RerankEngine,
+    dataset: RetrievalDataset,
+    iv2_scores: Dict[str, np.ndarray],
+    tokenizer,
+    topk: int,
+    cpn: bool,
+    alpha: Tuple[float, float],
+    c: Tuple[float, float, float, float],
+    has_tvg: bool,
+) -> Dict[str, Dict[str, float]]:
+    """The evaluation of every item of `dataset` against its videos, then
+    the recall tables {scoring: {metric: value}}."""
+    inputs = EvalInputs(
+        captions=dataset.captions,
+        item_video_idx=dataset.item_video_idx,
+        features=dataset.load_features(),
+        t2v_iv2=iv2_scores["t2v"],
+        v2t_iv2=iv2_scores["v2t"],
+    )
+    t2v_dict, v2t_dict = evaluation(
+        engine, inputs, tokenizer, dataset.name, topk=topk, cpn=cpn, has_tvg=has_tvg
+    )
+    n = len(dataset)
+    ids = {i: i for i in range(n)}
+    return fusion.all_scoring_results(
+        t2v_dict, v2t_dict, ids, ids, alpha=alpha, c=c, cpn=cpn, has_tvg=has_tvg
+    )
+
+
+def results_table(results: Dict[str, Dict[str, float]]) -> str:
+    """The recall tables as one text table, pandas' if it is installed,
+    else a fixed-width one."""
+    try:
+        import pandas as pd
+
+        return pd.DataFrame(results).transpose().to_string()
+    except ImportError:
+        lines = []
+        cols = list(next(iter(results.values())).keys())
+        lines.append(" " * 26 + "  ".join(f"{c:>10}" for c in cols))
+        for name, row in results.items():
+            lines.append(f"{name:<26}" + "  ".join(f"{row[c]:>10.2f}" for c in cols))
+        return "\n".join(lines)

@@ -300,6 +300,15 @@ class RerankEngine:
             self.tvg_pack_classes = default_tvg_pack_classes(tvg_layout.prefix_len)
             self._tvg_q_buckets = default_tvg_q_buckets(self.tvg_pack_classes)
 
+    def set_trainable(self, lora: Optional[Params], visual_head: torch.Tensor) -> None:
+        """Swap in the trainable weights (a LoRA tree, or None, and the
+        visual_head kernel), new or updated in place, between evaluations.
+        The memoized prior-prefix K/V was computed with the old LoRA, so it
+        is dropped; banks must be uploaded again."""
+        self.lora = lora
+        self.params = dict(self.params, visual_head={"kernel": visual_head})
+        self._prior_kv_cache = None
+
     # -- banks -----------------------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:

@@ -6,10 +6,14 @@ extraction: the vision tower's clip tokens are merged down to
 tokens_per_frame x local_frames before they are cached. The merge schedule
 depends on shapes only, so each round is a fixed sequence of tensor ops: a
 similarity matmul, a max, a stable descending argsort (JAX's argsort of the
-negated keys is stable), gathers and one index_add_. ToMe runs in x's dtype
-(bf16 on the card, as in the JAX package); on CUDA index_add_ is atomic, so
-the order of the bf16 sums into a destination token, and so its last bit,
-can change from run to run.
+negated keys is stable), gathers and one scatter-add. ToMe runs in x's dtype
+(bf16 on the card, as in the JAX package). The scatter-add is deterministic
+on both devices: on the card index_put_ with accumulate, which sorts the
+destinations and sums each one's sources in a fixed order (index_add_'s
+atomics would change a destination token's last bit from run to run, and
+through the later rounds' similarity ranking every merge after it); on the
+CPU index_add_, a serial loop (index_put_'s accumulate runs in parallel
+there).
 
 The two projections read the cached features: `mlp` for the VTG direction
 (every token) and `tvg_mlp` for the TVG direction (one token per clip).
@@ -79,7 +83,11 @@ def _merge_sum(x: torch.Tensor, unm_idx: torch.Tensor, src_idx: torch.Tensor,
 
     unm, moved = rows(unm_idx), rows(src_idx)
     flat = (dst_idx + tb * torch.arange(bsz, device=x.device)[:, None]).reshape(-1)
-    dst = dst_all.reshape(bsz * tb, c).index_add(0, flat, moved.reshape(-1, c))
+    rows_all, moved = dst_all.reshape(bsz * tb, c), moved.reshape(-1, c)
+    if x.is_cuda:
+        dst = rows_all.index_put((flat,), moved, accumulate=True)
+    else:
+        dst = rows_all.index_add(0, flat, moved)
     return torch.cat([unm, dst.reshape(bsz, tb, c)], dim=1)
 
 

@@ -11,9 +11,10 @@ and cache (clips, 64, 1024) fp16 features per video (data/features.py).
 Usage:
     python -m blim_tpu_torch.pipelines.extract --dataset MSRVTT --num_chunk 4 --chunk_idx 0
 
-Without a checkpoint the tower is random, made from a seed on the card
-(smoke mode). Loading an HF checkpoint needs the HF config reader, which the
-port does not have yet: a checkpoint directory raises.
+With a checkpoint directory (`config.json` + safetensors or
+pytorch_model*.bin) the tower is read from it, streamed to the card in
+bf16 (fp32 with --device cpu); without one the tower is random, made from a
+seed on the card (smoke mode).
 """
 
 from __future__ import annotations
@@ -398,8 +399,8 @@ def run_extraction(video_list, decode_fn, featurize, on_features, *,
 
 
 def main(args):
-    from blim_tpu_torch.checkpoints.convert import init_vision_tower
-    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.checkpoints.convert import init_vision_tower, load_videochat_flash
+    from blim_tpu_torch.core.config import ModelConfig, load_model_config
     from blim_tpu_torch.data.features import FeatureStore
     from blim_tpu_torch.models import umt_vit
 
@@ -412,15 +413,22 @@ def main(args):
     video_list = chunk_list(video_list, args.num_chunk, args.chunk_idx)
     print(f"{args.chunk_idx}-th of {args.num_chunk} chunks: {len(video_list)} videos")
 
-    if os.path.exists(os.path.join(args.model_path, "config.json")):
-        raise NotImplementedError(
-            f"{args.model_path} holds a checkpoint, and the port has no HF config reader yet; "
-            "convert its tower with checkpoints.convert.convert_vision_tower")
-    print(f"WARNING: no checkpoint at {args.model_path}; random tower (smoke mode)")
-    config = ModelConfig()
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    vit_params = init_vision_tower(config.vision, seed=0, dtype=dtype, device=dev)
+    have_ckpt = os.path.isdir(args.model_path) and os.path.exists(
+        os.path.join(args.model_path, "config.json")
+    )
+    if have_ckpt:
+        config = load_model_config(args.model_path)
+        tree = load_videochat_flash(args.model_path, config, dtype=dtype, device=dev,
+                                    parts=("vision_tower",))
+        if "vision_tower" not in tree:
+            raise KeyError(f"{args.model_path} has no model.vision_tower.* tensors")
+        vit_params = tree["vision_tower"]
+    else:
+        print(f"WARNING: no checkpoint at {args.model_path}; random tower (smoke mode)")
+        config = ModelConfig()
+        vit_params = init_vision_tower(config.vision, seed=0, dtype=dtype, device=dev)
 
     processor = umt_vit.UMTImageProcessor(size=(config.vision.image_size,) * 2)
     featurize = make_featurizer(vit_params, config, device=dev, device_preprocess=True)

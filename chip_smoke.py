@@ -56,7 +56,21 @@ Phases, one line each (all numbers beside the card's name and power limit):
               on the same fp32 tower output; then the extraction pipeline
               (run_extraction, device preprocessing) over E2E_VIDEOS synthetic
               videos of 16 uint8 frames of FRAME_HW, saved through the
-              feature store, with the on-card resize held to the CPU resize.
+              feature store, with the on-card resize held to the CPU resize;
+ 11. cli      the train/eval CLI on a checkpoint directory: the seeded
+              Qwen2-7B (CLI_LAYERS layers) and ViT-L tower written in the
+              published layout (config.json, sharded safetensors with an
+              index) into a temporary directory, read back through the
+              streaming loader and held to the seeded tree bit for bit; a
+              synthetic MSRVTT root (CLI_TEST_ITEMS test, CLI_TRAIN_ITEMS
+              train items, a features.pack, the score matrices); then
+              pipelines.main in-process three times (zero-shot eval with
+              --preset, one training epoch, the fine-tuned eval of the saved
+              best state with --resume, whose table must equal the epoch's),
+              launch counts checked against each run's path; and
+              pipelines.extract.main on the checkpoint's tower over
+              CLI_VIDEOS synthetic videos, held to the featurizer on the
+              seeded tower.
 Then one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -136,6 +150,13 @@ EXTRACT_TIMED = 5    # timed featurizer batches after one untimed
 E2E_VIDEOS = 32      # end-to-end extraction: videos, batch, frames of each video
 E2E_B = 2
 FRAME_HW = (240, 320)   # MSRVTT-like source frames, smaller than 448^2: shipped raw
+
+CLI_LAYERS = 28      # phase 11's checkpoint depth: the full Qwen2-7B (15.2 GB bf16 + the
+                     # 0.58 GB tower); the chip machine's temporary directory holds it
+CLI_SHARD_BYTES = 5 * 10**9   # ~4 shards, as the published checkpoint
+CLI_TEST_ITEMS = 64  # the CLI's synthetic MSRVTT test split (one caption a video)
+CLI_TRAIN_ITEMS = 16 # its train split: 4 steps of batch 4
+CLI_VIDEOS = 8       # extract.main's synthetic videos, batch 4
 
 WORDS = ["man", "woman", "dog", "cat", "runs", "jumps", "sings", "cooks",
          "dances", "rides", "park", "kitchen", "stage", "street", "ball", "car",
@@ -1334,6 +1355,372 @@ def phase_extract(card):
     return dict(launches=e2e_counts["flash_fwd_dense"], featurizer_vps=vps, e2e_vps=n_ok / e2e_s)
 
 
+def hf_config_json(cfg):
+    """A VideoChat-Flash config.json for cfg: the keys from_hf_config_dict
+    reads, as the published checkpoint names them."""
+    llm = cfg.llm
+    return {
+        "architectures": ["VideoChatFlashQwenForCausalLM"], "model_type": "videochat_flash_qwen",
+        "torch_dtype": "bfloat16", "vocab_size": llm.vocab_size, "hidden_size": llm.hidden_size,
+        "intermediate_size": llm.intermediate_size, "num_hidden_layers": llm.num_hidden_layers,
+        "num_attention_heads": llm.num_attention_heads,
+        "num_key_value_heads": llm.num_key_value_heads, "rope_theta": llm.rope_theta,
+        "rms_norm_eps": llm.rms_norm_eps, "max_position_embeddings": llm.max_position_embeddings,
+        "tie_word_embeddings": llm.tie_word_embeddings, "use_sliding_window": False,
+        "sliding_window": llm.sliding_window, "max_window_layers": llm.max_window_layers,
+        "mm_vision_tower": "umt-hd-large", "mm_vision_select_layer": cfg.vision.return_idx,
+        "mm_hidden_size": cfg.mm_hidden_size, "mm_local_num_frames": cfg.mm_local_num_frames,
+        "mm_projector_type": cfg.mm_projector_type, "vision_encode_type": cfg.vision_encode_type,
+        "mm_patch_merge_type": cfg.mm_patch_merge_type,
+        "mm_newline_position": cfg.mm_newline_position, "mm_llm_compress": False,
+        "llm_compress_type": cfg.llm_compress_type, "llm_compress_layer_list": [],
+        "llm_image_token_ratio_list": [1.0], "tokenizer_padding_side": "left",
+    }
+
+
+def cli_config():
+    import dataclasses
+
+    from blim_tpu_torch.core.config import ModelConfig
+
+    cfg = ModelConfig()
+    if CLI_LAYERS == cfg.llm.num_hidden_layers:
+        return cfg
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=CLI_LAYERS, max_window_layers=CLI_LAYERS))
+
+
+def seeded_checkpoint_tree(cfg):
+    """The seeded 7B and ViT-L tower on the card in bf16 (visual_head fp32):
+    what phase 11 writes and what the loaded tree must equal."""
+    import torch
+
+    from blim_tpu_torch.checkpoints.convert import init_params, init_vision_tower
+
+    tree = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    tree["vision_tower"] = init_vision_tower(cfg.vision, seed=SEED, dtype=torch.bfloat16,
+                                             device="cuda")
+    return tree
+
+
+def peak_rss_gib():
+    """This process's lifetime peak resident set in GiB (ru_maxrss)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def write_cli_data(root, cfg):
+    """Synthetic MSRVTT root from SEED: CLI_TEST_ITEMS test items (one
+    caption a video) and CLI_TRAIN_ITEMS train items over the first videos,
+    a features.pack of every video, and the zero-shot and fine-tuned score
+    matrices, kept off exact 0.0 and with the true pair ahead (so R@1 > 0
+    and a best checkpoint is kept)."""
+    from blim_tpu_torch.data.datasets import ANNOTATION_FILES
+    from blim_tpu_torch.data.features import FeatureStore
+
+    r = np.random.default_rng((SEED, 11))
+    n = CLI_TEST_ITEMS
+    ds = os.path.join(root, "MSRVTT")
+    os.makedirs(os.path.join(ds, "features"))
+    vids = [f"video{i:04d}" for i in range(n)]
+    feats = r.standard_normal((n, cfg.num_clips, cfg.tokens_per_clip, cfg.mm_hidden_size)) * 0.5
+    FeatureStore.write_pack(os.path.join(ds, "features"), vids, feats.astype(np.float16))
+    splits = {"test": zip(vids, make_captions(n, r, CAPTION_TOKENS)),
+              "train": zip(vids[:CLI_TRAIN_ITEMS], make_captions(CLI_TRAIN_ITEMS, r,
+                                                                 CAPTION_TOKENS))}
+    for split, items in splits.items():
+        with open(os.path.join(ds, ANNOTATION_FILES["MSRVTT"][split]), "w") as f:
+            json.dump([{"video": f"{v}.mp4", "caption": c} for v, c in items], f)
+    os.makedirs(os.path.join(root, "scores"))
+    for stem in ("msrvtt_zeroshot", "msrvtt"):
+        t2v, v2t = (r.standard_normal((n, n)).astype(np.float32) + 0.01 + 2 * np.eye(n, dtype=np.float32)
+                    for _ in range(2))
+        np.savez(os.path.join(root, "scores", f"{stem}.npz"), t2v=t2v, v2t=v2t)
+
+
+def run_cli(argv, card):
+    """pipelines.main.main in-process on the card -> (results, the prefix
+    forwards of the engine it built, {wall, peak_gib, evals: [s], epochs:
+    [s], train_stats}, launch counts of the whole run). The run's rank-0 print replaces builtins.print; it is
+    put back after."""
+    import argparse
+    import builtins
+    import gc
+
+    import torch
+
+    from blim_tpu_torch.engine import loop as loop_lib
+    from blim_tpu_torch.engine import rerank
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.pipelines import main as cli
+
+    engines, times = [], {"evals": [], "epochs": [], "train_stats": []}
+    real = (rerank.RerankEngine, loop_lib.val_one_epoch, loop_lib.train_one_epoch, builtins.print)
+
+    class Engine(real[0]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            if key == "epochs":
+                times["train_stats"].append(out[1])
+            return out
+        return run
+
+    args = argparse.ArgumentParser(parents=[cli.get_args_parser()]).parse_args(argv)
+    rerank.RerankEngine = Engine
+    loop_lib.val_one_epoch = timed(real[1], "evals")
+    loop_lib.train_one_epoch = timed(real[2], "epochs")
+    fa.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        results = cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        rerank.RerankEngine, loop_lib.val_one_epoch, loop_lib.train_one_epoch, \
+            builtins.print = real
+    times["wall"] = time.perf_counter() - t
+    times["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    counts = fa.counts()
+    prefix_forwards = engines[0].prefix_forwards
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, prefix_forwards, times, counts
+
+
+def phase_cli(card):
+    """Phase 11: the train/eval CLI on a checkpoint directory."""
+    import argparse
+    import tempfile
+
+    import torch
+
+    from blim_tpu_torch.checkpoints import safetensors_io, state_io
+    from blim_tpu_torch.checkpoints.convert import (export_hf_state_dict, init_vision_tower,
+                                                    load_videochat_flash)
+    from blim_tpu_torch.core.config import load_model_config
+    from blim_tpu_torch.engine import loop as loop_lib
+    from blim_tpu_torch.engine import train as train_lib
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.models import umt_vit
+    from blim_tpu_torch.pipelines import extract
+
+    t_phase = time.time()
+    cfg = cli_config()
+    layers = cfg.llm.num_hidden_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        import shutil
+
+        print(f"[cli] temporary directory {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB "
+              f"free; checkpoint depth CLI_LAYERS = {CLI_LAYERS}", flush=True)
+        ckpt = os.path.join(tmp, "VideoChat-Flash-Qwen2-7B_res448")
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(hf_config_json(cfg), f, indent=2)
+        t = time.perf_counter()
+        tree = seeded_checkpoint_tree(cfg)
+        weight_map = safetensors_io.save_sharded(export_hf_state_dict(tree), ckpt,
+                                                 CLI_SHARD_BYTES)
+        write_s = time.perf_counter() - t
+        n_params = sum(x.numel() for _, x in _named_leaves(tree) if x is not None)
+        del tree
+        torch.cuda.empty_cache()
+        files = sorted(set(weight_map.values()))
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        print(f"[cli] wrote the seeded tree ({n_params / 1e9:.3f}B params, {len(weight_map)} "
+              f"tensors) as {len(files)} shards + index, {nbytes / 1e9:.2f} GB, in {write_s:.1f}s",
+              flush=True)
+
+        # load it back through the CLI's loader and hold it to the seeded tree
+        rss_before = peak_rss_gib()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        config = load_model_config(ckpt)
+        loaded = load_videochat_flash(ckpt, config, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        rss = peak_rss_gib()
+        if config != cfg:
+            fail(f"cli: the checkpoint's config.json reads as {config}, not {cfg}")
+        want = seeded_checkpoint_tree(cfg)
+        got_flat, want_flat = dict(_named_leaves(loaded)), dict(_named_leaves(want))
+        if got_flat.keys() != want_flat.keys():
+            fail(f"cli: loaded tree keys differ: {sorted(got_flat.keys() ^ want_flat.keys())[:4]}")
+        differ = [k for k, w in want_flat.items() if (w is None) != (got_flat[k] is None) or (
+            w is not None and (w.dtype != got_flat[k].dtype or w.shape != got_flat[k].shape
+                               or not torch.equal(w.reshape(-1).view(torch.uint8),
+                                                  got_flat[k].reshape(-1).view(torch.uint8))))]
+        del loaded, want, got_flat, want_flat
+        torch.cuda.empty_cache()
+        print(f"[cli] load_model_config + load_videochat_flash: {nbytes / 1e9:.2f} GB in "
+              f"{load_s:.2f}s = {nbytes / 1e9 / load_s:.2f} GB/s, the process's peak host RSS "
+              f"{rss:.2f} GiB after it ({rss_before:.2f} GiB before); "
+              f"config == ModelConfig(){'' if CLI_LAYERS == 28 else ' at CLI_LAYERS'}, "
+              f"{len(differ)} leaves differ from the seeded tree bit for bit [{card}]", flush=True)
+        if differ:
+            fail(f"cli: loaded leaves differ from the seeded tree: {differ[:4]}")
+
+        root = os.path.join(tmp, "data")
+        write_cli_data(root, cfg)
+        out = os.path.join(tmp, "out")
+        common = ["--dataset", "MSRVTT", "--data_root", root, "--scores_dir",
+                  os.path.join(root, "scores"), "--model_path", ckpt, "--topk", str(TOPK), "--cpn"]
+
+        def blim_row(res):
+            return ", ".join(f"{k} {v}" for k, v in res["blim"].items())
+
+        # zero-shot eval
+        res, prefix_forwards, times, counts = run_cli(common + ["--eval", "--preset", "--output_dir",
+                                                       os.path.join(out, "zeroshot")], card)
+        expected = dict({k: 0 for k in counts}, flash_fwd=layers * prefix_forwards)
+        print(f"[cli] zero-shot eval (--eval --preset --cpn --topk {TOPK}) on {CLI_TEST_ITEMS} "
+              f"items: wall {times['wall']:.2f}s, of it val_one_epoch {times['evals'][0]:.2f}s; peak "
+              f"{times['peak_gib']:.2f} GiB; "
+              f"launches {counts} (expected {expected} = {layers} x {prefix_forwards} "
+              f"prefix forwards); blim: {blim_row(res)} [{card}]", flush=True)
+        if counts != expected or not prefix_forwards:
+            fail(f"cli zero-shot eval: launches {counts} != expected {expected}")
+        with open(os.path.join(out, "zeroshot", "log.txt")) as f:
+            if loop_lib.results_table(res) not in f.read():
+                fail("cli zero-shot eval: log.txt lacks the results table")
+
+        # one training epoch, its eval, epoch0/ and checkpoint_best/
+        train_dir = os.path.join(out, "train")
+        res_train, prefix_forwards, times, counts = run_cli(
+            common + ["--epochs", "1", "--batch_size", "4", "--output_dir", train_dir], card)
+        steps = -(-CLI_TRAIN_ITEMS // 4)
+        expected = dict({k: 0 for k in counts}, flash_fwd=layers * prefix_forwards,
+                        flash_fwd_lse=steps * 4 * layers, flash_dq=steps * 2 * layers,
+                        flash_dkv=steps * 2 * layers)
+        stats = times["train_stats"][0]
+        print(f"[cli] one training epoch (--epochs 1 --batch_size 4 --cpn --topk {TOPK}): wall "
+              f"{times['wall']:.2f}s (peak {times['peak_gib']:.2f} GiB), of it the epoch "
+              f"{times['epochs'][0]:.2f}s ({steps} steps, "
+              f"{1e3 * times['epochs'][0] / steps:.0f} ms/step) and its eval "
+              f"{times['evals'][0]:.2f}s; loss {stats['loss']:.4f} (vtg {stats['vtg_loss']:.4f}, "
+              f"tvg {stats['tvg_loss']:.4f}); launches {counts} (expected {expected}: per step "
+              f"{4 * layers} flash_fwd_lse, {2 * layers} flash_dq, {2 * layers} flash_dkv); "
+              f"blim: {blim_row(res_train)} [{card}]", flush=True)
+        if counts != expected:
+            fail(f"cli training epoch: launches {counts} != expected {expected}")
+        if not all(np.isfinite(v) for v in stats.values()):
+            fail(f"cli training epoch: non-finite stats {stats}")
+        tcfg = train_lib.TrainConfig()
+        n_trainable = state_io.count_params(train_lib.init_trainable(
+            torch.Generator().manual_seed(0), cfg, tcfg,
+            visual_head=torch.zeros(cfg.llm.hidden_size, cfg.mm_hidden_size)))
+        for name in ("epoch0", "checkpoint_best"):
+            meta_path = os.path.join(train_dir, name, "meta.json")
+            if not os.path.exists(meta_path):
+                fail(f"cli training epoch: {name}/ was not written")
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if (meta["epoch"], meta["n_trainable"]) != (0, n_trainable):
+                fail(f"cli training epoch: {name}/meta.json has epoch {meta['epoch']}, "
+                     f"n_trainable {meta['n_trainable']} (expected 0, {n_trainable})")
+        print(f"[cli] epoch0/ and checkpoint_best/ written, meta.json epoch 0, n_trainable "
+              f"{n_trainable:,}", flush=True)
+
+        # the fine-tuned eval of the saved best state
+        res_resumed, prefix_forwards, times, counts = run_cli(
+            common + ["--eval", "--resume", os.path.join(train_dir, "checkpoint_best"),
+                      "--output_dir", os.path.join(out, "resumed")], card)
+        expected = dict({k: 0 for k in counts}, flash_fwd=layers * prefix_forwards)
+        same = loop_lib.results_table(res_resumed) == loop_lib.results_table(res_train)
+        print(f"[cli] fine-tuned eval (--eval --resume checkpoint_best): wall {times['wall']:.2f}s, "
+              f"of it val_one_epoch {times['evals'][0]:.2f}s; peak {times['peak_gib']:.2f} GiB; "
+              f"launches {counts} (expected "
+              f"{expected}); results table {'equal to' if same else 'DIFFERENT from'} the "
+              f"epoch's [{card}]", flush=True)
+        print(loop_lib.results_table(res_resumed), flush=True)
+        if counts != expected:
+            fail(f"cli fine-tuned eval: launches {counts} != expected {expected}")
+        if not same:
+            print(loop_lib.results_table(res_train), flush=True)
+            fail("cli: the resumed eval's table differs from the training epoch's")
+
+        # extract.main on the checkpoint's tower, held to the featurizer on the
+        # seeded tower; first, two featurizer runs on one input must agree bit
+        # for bit (ToMe's scatter-add is deterministic: projector._merge_sum)
+        vid_dir = os.path.join(tmp, "videos_root", "MSRVTT", "videos")
+        os.makedirs(vid_dir)
+        names = [f"synthetic_{i:03d}" for i in range(CLI_VIDEOS)]
+        for name in names:
+            open(os.path.join(vid_dir, name + ".mp4"), "wb").close()
+        vit = init_vision_tower(cfg.vision, seed=SEED, dtype=torch.bfloat16, device="cuda")
+        proc = umt_vit.UMTImageProcessor(size=(cfg.vision.image_size,) * 2)
+        featurize = extract.make_featurizer(vit, cfg, device="cuda", device_preprocess=True)
+        frames = np.stack([extract.resize_for_upload(synthetic_frames(n), proc, proc.size)
+                           for n in names])
+        frames = frames.reshape(CLI_VIDEOS, cfg.num_clips, cfg.mm_local_num_frames,
+                                *frames.shape[2:])
+
+        def featurize_all():
+            return torch.cat([featurize(torch.from_numpy(frames[s: s + 4])).to(torch.float16).cpu()
+                              for s in range(0, CLI_VIDEOS, 4)]).float()
+
+        def compare(got, want):
+            """(|d|/|want| Frobenius, max|d|, share of clips alike)."""
+            d = got - want
+            alike = d.abs().amax(dim=(2, 3)) <= TOME_CLIP_TOL * want.abs().amax(dim=(2, 3))
+            return ((d.norm() / want.norm()).item(), d.abs().max().item(),
+                    alike.float().mean().item())
+
+        twice = compare(featurize_all(), featurize_all())
+        read_frames = extract.read_frames
+        # the chip machine may lack a video decoder: frames come from the
+        # phase 10 maker, named by the file
+        extract.read_frames = lambda path, n, max_duration=None: synthetic_frames(
+            os.path.splitext(path)[0])
+        ex_args = extract.get_args_parser().parse_args([
+            "--dataset", "MSRVTT", "--data_root", os.path.join(tmp, "videos_root"),
+            "--model_path", ckpt, "--num_frames", "16", "--batch_size", "4"])
+        fa.reset_counts()
+        t = time.perf_counter()
+        try:
+            extract.main(ex_args)
+            torch.cuda.synchronize()
+        finally:
+            extract.read_frames = read_frames
+        ex_s = time.perf_counter() - t
+        ex_counts = fa.counts()
+        want = featurize_all()
+        feat_dir = os.path.join(tmp, "videos_root", "MSRVTT", "features")
+        saved = np.stack([np.load(os.path.join(feat_dir, n + ".npy")) for n in names])
+        rel, max_d, alike = compare(torch.from_numpy(saved).float(), want)
+        calls = -(-CLI_VIDEOS // 4)
+        ex_expected = dict({k: 0 for k in ex_counts},
+                           flash_fwd_dense=cfg.vision.depth * calls)
+        print(f"[cli] featurizer on the seeded tower, two runs on the same {CLI_VIDEOS} videos: "
+              f"max|d| {twice[1]:.3e}, {twice[2]:.4f} of clips alike [{card}]", flush=True)
+        if twice[1] != 0.0:
+            fail("cli: two featurizer runs on the same videos differ (ToMe not deterministic)")
+        print(f"[cli] extract.main --model_path (the checkpoint's tower, bf16) over {CLI_VIDEOS} "
+              f"videos, batch 4: {ex_s:.2f}s; saved features "
+              f"{tuple(saved.shape)} {saved.dtype} vs the featurizer on the seeded tower: max|d| "
+              f"{max_d:.3e}, |d|/|want| (Frobenius) {rel:.3e} (tol {TOWER_TOL}), {alike:.4f} of "
+              f"clips alike; launches {ex_counts} (expected {ex_expected}) [{card}]", flush=True)
+        if ex_counts != ex_expected:
+            fail(f"cli extract.main: launches {ex_counts} != expected {ex_expected}")
+        if saved.shape != (CLI_VIDEOS, cfg.num_clips, cfg.tokens_per_clip, cfg.mm_hidden_size) \
+                or not np.isfinite(saved.astype(np.float32)).all() or rel > TOWER_TOL:
+            fail("cli extract.main: saved features disagree with the featurizer")
+        del vit, featurize
+        torch.cuda.empty_cache()
+    print(f"[time] phase 11 (cli) took {time.time() - t_phase:.1f}s", flush=True)
+    return dict(load_s=load_s, load_gbps=nbytes / 1e9 / load_s)
+
+
 def main():
     if not (ROOT / "blim_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"the blim_tpu_torch package is not next to {Path(__file__).name}")
@@ -1366,6 +1753,8 @@ def main():
     vit_record = phase_vit_kernel(card)
     extract_st = phase_extract(card)
     print(f"[time] phases 9-10 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    phase_cli(card)
 
     src = "blim_tpu_torch/kernels/csrc/"
     ref = "blim_tpu/kernels/flash_attention.py:"

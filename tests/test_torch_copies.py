@@ -1,6 +1,7 @@
 """The port keeps its own copies of the JAX package's JAX-free helpers
-(configs, tokenizer, prompt layouts, train collation and loader, pack
-schedulers, recall and fusion). Each copy is pinned equal to its original
+(configs and the HF config reader, tokenizer, prompt layouts, train
+collation and loader, dataset helpers, presets, metric logging, pack
+schedulers, recall and fusion, the results table). Each copy is pinned equal to its original
 here; the extraction slice's copies (the ViT's position tables and resize
 matrices, the image processor, the frame sampling, chunking and the feature
 store) are pinned in tests/test_torch_vit.py and tests/test_torch_extract.py."""
@@ -376,3 +377,106 @@ def test_assemble_tvg_packs_bulk_matches_loop_and_jax(seed, head):
             np.testing.assert_array_equal(pp, pair_pos[i])
             np.testing.assert_array_equal(pp, jpair_pos[i])
     assert n_classes >= 1
+
+
+# ---------------------------------------------------------------------------
+# the CLI slice's copies: HF config reader, presets, dataset helpers, metric
+# logging, the results table
+# ---------------------------------------------------------------------------
+
+HF_DICTS = [
+    {},
+    {"vocab_size": 152064, "hidden_size": 3584, "intermediate_size": 18944,
+     "num_hidden_layers": 28, "num_attention_heads": 28, "num_key_value_heads": 4,
+     "mm_vision_tower": "umt-hd-large", "mm_hidden_size": 1024, "mm_local_num_frames": 4},
+    {"hidden_size": 64, "num_attention_heads": 4, "head_dim": 32, "mm_vision_tower": "umt-large",
+     "mm_vision_select_layer": -5, "tie_word_embeddings": True, "use_sliding_window": 1,
+     "sliding_window": None, "llm_compress_layer_list": None, "llm_image_token_ratio_list": [],
+     "tokenizer_model_max_length": 8192, "tokenizer_padding_side": "right",
+     "mm_llm_compress": 1, "mm_newline_position": "grid", "rope_theta": 5e5},
+    {"num_hidden_layers": 4, "max_window_layers": 2, "llm_compress_layer_list": [1, 2],
+     "llm_image_token_ratio_list": [1.0, 0.5], "mm_projector_type": "mlp2x_gelu"},
+]
+
+
+@pytest.mark.parametrize("d", HF_DICTS, ids=["empty", "7b", "odd", "compress"])
+def test_from_hf_config_dict_copy_matches(d):
+    t, j = tconfig.from_hf_config_dict(dict(d)), jconfig.from_hf_config_dict(dict(d))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_hf_7b_config_is_the_default_config():
+    assert tconfig.from_hf_config_dict(HF_DICTS[1]) == tconfig.ModelConfig()
+
+
+def test_presets_copy_match():
+    from blim_tpu.pipelines import configs as jpresets
+    from blim_tpu_torch.pipelines import configs as tpresets
+
+    assert tpresets.TRAIN_PRESETS == jpresets.TRAIN_PRESETS
+    assert tpresets.ZEROSHOT_PRESETS == jpresets.ZEROSHOT_PRESETS
+    import argparse
+
+    for ds in jpresets.TRAIN_PRESETS:
+        for zeroshot in (False, True):
+            t = tpresets.apply_preset(argparse.Namespace(dataset=ds, topk=1), zeroshot=zeroshot)
+            j = jpresets.apply_preset(argparse.Namespace(dataset=ds, topk=1), zeroshot=zeroshot)
+            assert vars(t) == vars(j)
+
+
+def test_dataset_helper_copies_match():
+    assert tdatasets.ANNOTATION_FILES == jdatasets.ANNOTATION_FILES
+    assert tdatasets.DATASETS == jdatasets.DATASETS
+    for name, video in (("MSRVTT", "video7.mp4"), ("DiDeMo", "a.b.mp4"),
+                        ("ActivityNet", "v_x.mkv"), ("LSMDC", "1001_Movie/1001_clip.avi")):
+        assert tdatasets._vid_from_path(name, video) == jdatasets._vid_from_path(name, video)
+    for name, caption in (("MSRVTT", "  a cat  "), ("DiDeMo", ["a man", " runs "]),
+                          ("ActivityNet", [" one.", " two. "]), ("LSMDC", 7)):
+        assert tdatasets._caption(name, caption) == jdatasets._caption(name, caption)
+
+
+def _feed(mod):
+    meter = mod.SmoothedValue(window_size=3)
+    for i, v in enumerate([0.5, 2.0, 1.25, 7.0, 3.5]):
+        meter.update(v, n=i % 2 + 1)
+    logger = mod.MetricLogger(delimiter=" | ")
+    logger.add_meter("lr", mod.SmoothedValue(window_size=1, fmt="{value:.6f}"))
+    for i in range(4):
+        logger.update(loss=1.0 / (i + 1), lr=1e-4 * i)
+    return meter, logger
+
+
+def test_metric_logging_copies_match(capsys):
+    from blim_tpu.utils import logging as jlogging
+    from blim_tpu_torch.utils import logging as tlogging
+
+    (tm, tl), (jm, jl) = _feed(tlogging), _feed(jlogging)
+    for attr in ("median", "avg", "global_avg", "max", "value", "count", "total"):
+        assert getattr(tm, attr) == getattr(jm, attr), attr
+    assert str(tm) == str(jm) and str(tl) == str(jl)
+    assert tl.loss.global_avg == jl.loss.global_avg
+    tl.synchronize_between_processes()
+    assert str(tl) == str(jl)
+
+    def lines(mod, logger):
+        import re
+
+        list(logger.log_every(range(5), 2, header="Epoch: [0]"))
+        # the clock readings differ; the rest of each line must not
+        return [re.sub(r"(eta|time|data|Total time): \S+", r"\1: T", ln)
+                for ln in capsys.readouterr().out.splitlines()]
+
+    assert lines(tlogging, tl) == lines(jlogging, jl)
+
+
+def test_results_table_fallback_copy_matches(monkeypatch):
+    import sys
+
+    from blim_tpu.engine import loop as jloop
+    from blim_tpu_torch.engine import loop as tloop
+
+    results = {"internvideo2": {"t2v_r1": 12.5, "t2v_r5": 40.0, "r_mean": 33.333},
+               "blim": {"t2v_r1": 50.0, "t2v_r5": 87.5, "r_mean": 70.1}}
+    monkeypatch.setitem(sys.modules, "pandas", None)        # the card machine has no pandas
+    t, j = tloop.results_table(results), jloop.results_table(results)
+    assert t == j and "blim" in t and "70.10" in t

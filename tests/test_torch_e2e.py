@@ -144,11 +144,14 @@ def test_port_imports_no_jax_and_no_jax_package():
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
-    for module in ("adapters/lora", "checkpoints/convert", "data/collate", "data/datasets",
-                   "data/features", "data/prompts", "engine/train", "engine/loop",
-                   "kernels/flash_attention", "kernels/attention", "models/qwen2",
-                   "models/projector", "models/umt_vit", "models/videochat_flash",
-                   "pipelines/extract", "scoring/criteria"):
+    for module in ("adapters/lora", "checkpoints/convert", "checkpoints/safetensors_io",
+                   "checkpoints/state_io", "core/config", "data/collate", "data/datasets",
+                   "data/features", "data/prompts", "data/tokenization", "engine/train",
+                   "engine/loop", "kernels/flash_attention", "kernels/attention",
+                   "models/qwen2", "models/projector", "models/umt_vit",
+                   "models/videochat_flash", "pipelines/configs", "pipelines/extract",
+                   "pipelines/main", "scoring/criteria", "utils/distributed",
+                   "utils/logging"):
         assert f"blim_tpu_torch/{module}.py" in names, module
     for f in files:
         for mod in _imports(f):

@@ -369,7 +369,7 @@ def test_main_refuses_a_checkpoint_it_cannot_read(tmp_path):
     (tmp_path / "ckpt" / "config.json").write_text("{}")
     args = tex.get_args_parser().parse_args([
         "--data_root", str(tmp_path), "--model_path", str(tmp_path / "ckpt"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="no checkpoint shards"):
         tex.main(args)
 
 
