@@ -1,13 +1,14 @@
-"""Video feature cache IO (copy of blim_tpu/data/features.py without the
-native reader).
+"""Video feature cache IO (copy of blim_tpu/data/features.py).
 
 Per-video ToMe features, shape (4, 64, 1024), are cached as fp16 `.npy`
 files (`{root}/{vid}.npy`); reference-produced `.pth` caches are read too,
 and a missing video reads as zeros, as the reference's dataset does. A
 packed single-file format (`features.pack` + `features.idx.json`) makes a
-10k-video dataset one sequential mmap read instead of 10k file opens; this
-copy reads it through a numpy memmap (the JAX package's host C++ reader,
-`native/feature_pack.cpp`, is not ported yet).
+10k-video dataset one sequential mmap read instead of 10k file opens.
+`load_many` gathers from the pack through the native reader
+(data/native_pack.py: an mmap and fp16 -> fp32 conversion on host threads)
+and, where it cannot be built, through a numpy memmap, as the JAX store
+does. `reader` says which: "native", "memmap", or None without a pack.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from blim_tpu_torch.data.native_pack import NativePack
 
 
 class FeatureStore:
@@ -33,6 +36,8 @@ class FeatureStore:
         self.dtype = dtype
         self._pack: Optional[np.memmap] = None
         self._pack_index: Dict[str, int] = {}
+        self._native = None
+        self.reader: Optional[str] = None
         pack_path = os.path.join(root, "features.pack")
         idx_path = os.path.join(root, "features.idx.json")
         if os.path.exists(pack_path) and os.path.exists(idx_path):
@@ -44,6 +49,13 @@ class FeatureStore:
                 pack_path, dtype=np.dtype(meta["dtype"]), mode="r",
                 shape=(len(self._pack_index), *self.shape),
             )
+            try:
+                self._native = NativePack(
+                    pack_path, len(self._pack_index), self.shape, meta["dtype"]
+                )
+            except RuntimeError:
+                pass  # the reader cannot be built or cannot open the pack: the memmap
+            self.reader = "memmap" if self._native is None else "native"
 
     def available(self, vid: str) -> bool:
         if vid in self._pack_index:
@@ -69,6 +81,8 @@ class FeatureStore:
     def load_many(self, vids: Sequence[str]) -> np.ndarray:
         if self._pack is not None and all(v in self._pack_index for v in vids):
             idx = np.asarray([self._pack_index[v] for v in vids], np.int64)
+            if self._native is not None:
+                return self._native.gather(idx)
             return np.asarray(self._pack[idx], self.dtype)
         return np.stack([self.load(v) for v in vids], axis=0)
 

@@ -20,16 +20,24 @@ attention, so its text-only prefix runs once per dataset. In the TVG
 direction the caption is the prefix: caption prefixes are packed back to
 back into rows (`tvg_pack_prefix_kv`) and each (caption, video) pair is a
 clips-wide query against its caption's segment (`score_tvg_packed`).
+
+Interactive use: `chat` (a video file -> featurizer -> prompt -> `generate`
+-> text and history) and `generate` (splice at the prompt's image slot,
+then models/generation's prefill and KV-cache decode); the single-image
+path `encode_image_tiles` (tower on 1-frame tiles, ToMe to 64, `mlp`) and
+`merge_image_patches` (anyres tiles back to raster order).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from blim_tpu_torch.core.config import ModelConfig
+from blim_tpu_torch.core.device import DeviceLike, resolve_device
 from blim_tpu_torch.models import projector as projector_lib
 from blim_tpu_torch.models import qwen2
 from blim_tpu_torch.scoring import criteria
@@ -255,3 +263,162 @@ def score_tvg_packed(params: Params, config: ModelConfig,
     clip_hidden = hidden.reshape(g * qn, clips, -1)
     logits = criteria.tvg_clip_logits(clip_hidden, params["visual_head"]["kernel"], video_vocab)
     return criteria.tvg_likelihood(logits, q_label.reshape(-1)).reshape(g, qn)
+
+
+# ---------------------------------------------------------------------------
+# Interactive generation (generate / chat) and the single-image path
+# ---------------------------------------------------------------------------
+
+def encode_image_tiles(params: Params,              # must include "vision_tower"
+                       config: ModelConfig,
+                       pixels,                      # (N, 3, H, W) anyres tiles, base first
+                       lora: Optional[Params] = None, lora_scale: float = 0.0,
+                       device: DeviceLike = "cuda") -> torch.Tensor:
+    """Single-image encode: each anyres tile runs the tower as a 1-frame
+    clip with the image position table (B2 on CUDA at S = patches a frame),
+    ToMe-compresses to 64 tokens and projects through `mlp` -> (N, 64,
+    hidden). Pixels enter the tower in its parameters' dtype."""
+    from blim_tpu_torch.models import umt_vit
+
+    dev = resolve_device(device)
+    tower = params["vision_tower"]
+    pixels = torch.as_tensor(pixels).to(device=dev, dtype=tower["patch_embed"]["kernel"].dtype)
+    n = pixels.shape[0]
+    _, pos_img = umt_vit.build_pos_tables(config.vision)
+    with torch.no_grad():
+        feats = umt_vit.encode_clips(tower, pixels[:, None], pos_img,
+                                     config.vision)                   # (N, patches, mm)
+        compressed = projector_lib.compress_image_tokens(
+            feats.reshape(n, -1, config.mm_hidden_size), config.vision.num_attention_heads,
+            target=64)
+        mlp = params["projector"]["mlp"]
+        return projector_lib.mlp_apply(mlp, compressed.to(mlp["fc1"]["kernel"].dtype),
+                                       lora=None if lora is None else lora["projector"].get("mlp"),
+                                       lora_scale=lora_scale)
+
+
+def merge_image_patches(image_feature: torch.Tensor,   # (N_tiles, 64, hidden), base first
+                        image_size,                    # original (width, height)
+                        config: ModelConfig,
+                        image_grid_pinpoints,
+                        image_aspect_ratio: str = "anyres_nopad",
+                        mm_patch_merge_type: str = "spatial_nopad") -> torch.Tensor:
+    """Reassemble anyres tile features into one token sequence: grid tiles
+    view as (nph, npw, 8, 8, C), transpose to raster order, flatten, and
+    prepend the base view. Branches the reference leaves unimplemented
+    (maxpool2x2, unpad, non-anyres) raise."""
+    from blim_tpu_torch.data.images import get_anyres_image_grid_shape
+
+    if image_feature.shape[0] == 1:
+        if "unpad" in mm_patch_merge_type:
+            raise NotImplementedError("unpad newline: unimplemented in the reference path")
+        return image_feature[0]
+    base = image_feature[0]
+    tiles = image_feature[1:]
+    hw = 8  # num_image_patches_per_side
+    assert hw * hw == tiles.shape[1], tiles.shape
+    if "anyres" not in image_aspect_ratio:
+        raise NotImplementedError(image_aspect_ratio)
+    npw, nph = get_anyres_image_grid_shape(image_size, image_grid_pinpoints,
+                                           config.vision.image_size)
+    if "maxpool2x2" in mm_patch_merge_type or "unpad" in mm_patch_merge_type:
+        raise NotImplementedError("unimplemented in the reference path")
+    feat = tiles.reshape(nph, npw, hw, hw, tiles.shape[-1])
+    feat = feat.permute(0, 2, 1, 3, 4).reshape(-1, tiles.shape[-1])
+    if "nobase" in mm_patch_merge_type:
+        return feat
+    return torch.cat([base, feat], dim=0)
+
+
+def generate(params: Params, config: ModelConfig,
+             input_ids,                      # flat prompt ids holding one -200 image slot
+             video_embeds: torch.Tensor,     # (Nv, D) projected video embeddings
+             tokenizer, max_new_tokens: int = 256, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             lora: Optional[Params] = None,  # {"llm": ..., "projector": ...}
+             lora_scale: float = 0.0, device: DeviceLike = "cuda",
+             return_logits: bool = False):
+    """Single-prompt generation: the video embeddings spliced at the first
+    IMAGE_TOKEN_INDEX slot (or none, for a text-only prompt), prefill and
+    KV-cache decode; a LoRA tree applies throughout. Returns the
+    (max_new_tokens,) token ids as numpy, and with `return_logits` also the
+    (steps run, V) fp32 logits they were chosen from."""
+    from blim_tpu_torch.core.constants import IMAGE_TOKEN_INDEX
+    from blim_tpu_torch.models import generation
+
+    dev = resolve_device(device)
+    llm = params["llm"]
+    ids = np.asarray(input_ids)
+    (img_pos,) = np.nonzero(ids == IMAGE_TOKEN_INDEX)
+    as_ids = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)  # noqa: E731
+    if len(img_pos):
+        ip = int(img_pos[0])
+        emb = torch.cat([qwen2.embed_tokens(llm, as_ids(ids[:ip])),
+                         video_embeds.to(device=dev, dtype=llm["embed_tokens"]["embedding"].dtype),
+                         qwen2.embed_tokens(llm, as_ids(ids[ip + 1:]))], dim=0)[None]
+    else:
+        emb = qwen2.embed_tokens(llm, as_ids(ids))[None]
+    mask = torch.ones(emb.shape[:2], dtype=torch.int32, device=dev)
+    eos = [tokenizer.eos_token_id] if tokenizer.eos_token_id is not None else [151645]
+    out = generation.generate_tokens(
+        llm, config.llm, emb, mask, max_new_tokens, eos, temperature=temperature,
+        generator=generator, lora=None if lora is None else lora["llm"], lora_scale=lora_scale,
+        return_logits=return_logits)
+    if return_logits:
+        tokens, logits = out
+        return tokens[0].cpu().numpy(), logits[0]
+    return out[0].cpu().numpy()
+
+
+def chat(params: Params, config: ModelConfig, video_path: str, tokenizer, user_prompt: str,
+         featurize,                          # pixels -> cached features (extract.make_featurizer)
+         image_processor, chat_history: Optional[list] = None, return_history: bool = True,
+         max_num_frames: int = 512, max_new_tokens: int = 256, temperature: float = 0.0,
+         generator: Optional[torch.Generator] = None,
+         lora: Optional[Params] = None,      # {"llm": ..., "projector": ...}
+         lora_scale: float = 0.0, device: DeviceLike = "cuda"):
+    """Video chat: decode -> featurize -> prompt -> generate -> detokenize.
+    The first turn carries the video and the time message; later turns
+    replay `chat_history`. Returns (text, history), or the text alone."""
+    from blim_tpu_torch.core.constants import DEFAULT_IMAGE_TOKEN
+    from blim_tpu_torch.data.conversation import conv_templates
+    from blim_tpu_torch.data.prompts import tokenizer_image_token
+    from blim_tpu_torch.data.video import load_video
+    from blim_tpu_torch.models.generation import KeywordsStoppingCriteria
+
+    dev = resolve_device(device)
+    frames, time_msg = load_video(video_path, max_num_frames=max_num_frames,
+                                  local_num_frames=config.mm_local_num_frames)
+    pixels = image_processor.preprocess(frames)  # (T, 3, H, W)
+    lf = config.mm_local_num_frames
+    clips = len(pixels) // lf
+    pix = torch.from_numpy(np.ascontiguousarray(
+        pixels[: clips * lf].reshape(1, clips, lf, *pixels.shape[1:])))
+    feats = featurize(pix)[0]                    # (clips, tokens_per_clip, mm)
+    proj = params["projector"]
+    with torch.no_grad():
+        video_embeds = projector_lib.project_vtg(
+            proj, feats[None].to(device=dev, dtype=proj["mlp"]["fc1"]["kernel"].dtype),
+            lora=None if lora is None else lora["projector"], lora_scale=lora_scale)[0]
+
+    conv = conv_templates["qwen_2"].copy()
+    if chat_history:
+        for msg in chat_history:
+            conv.append_message(msg["role"], msg["content"])
+        conv.append_message(conv.roles[0], user_prompt)
+    else:
+        conv.append_message(conv.roles[0],
+                            f"{DEFAULT_IMAGE_TOKEN}\n{time_msg.strip()} {user_prompt}")
+    conv.append_message(conv.roles[1], None)
+    input_ids = tokenizer_image_token(conv.get_prompt(), tokenizer)
+
+    tokens = generate(params, config, input_ids, video_embeds, tokenizer,
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      generator=generator, lora=lora, lora_scale=lora_scale, device=dev)
+    text = tokenizer.decode(list(tokens), skip_special_tokens=True)
+    text = KeywordsStoppingCriteria([conv.sep], tokenizer).trim(text)
+
+    history = list(chat_history or [])
+    history.append({"role": conv.roles[0], "content": user_prompt})
+    history.append({"role": conv.roles[1], "content": text})
+    return (text, history) if return_history else text

@@ -63,14 +63,33 @@ Phases, one line each (all numbers beside the card's name and power limit):
               index) into a temporary directory, read back through the
               streaming loader and held to the seeded tree bit for bit; a
               synthetic MSRVTT root (CLI_TEST_ITEMS test, CLI_TRAIN_ITEMS
-              train items, a features.pack, the score matrices); then
+              train items, a features.pack, the score matrices), whose
+              FeatureStore must read through the native reader and gather
+              what a numpy memmap gathers bit for bit; then
               pipelines.main in-process three times (zero-shot eval with
               --preset, one training epoch, the fine-tuned eval of the saved
               best state with --resume, whose table must equal the epoch's),
-              launch counts checked against each run's path; and
+              launch counts checked against each run's path, the zero-shot
+              run's feature gathers through the native reader; and
               pipelines.extract.main on the checkpoint's tower over
               CLI_VIDEOS synthetic videos, held to the featurizer on the
-              seeded tower.
+              seeded tower;
+ 12. chat     the seeded Qwen2-7B + ViT-L in bf16: `chat` end to end at the
+              CHAT_FRAMES cap on a synthetic video written with OpenCV (or,
+              without a decoder, load_video replaced by the seeded frames;
+              the line says so): decode, preprocess, featurizer (B2, 23
+              launches), prefill (B1, 28), greedy decode of CHAT_NEW_TOKENS,
+              with its breakdown and peak memory; `generate` on the chat's
+              prompt and video embedding: time to first token, decode
+              ms/token against the weight-read bound, and the cached steps'
+              logits against one teacher-forced full forward (DECODE_TOL; a
+              cache planted without the prompt's K/V must exceed it, a RoPE
+              position one late is printed beside); the image path
+              (encode_image_tiles + merge_image_patches on a 2 x 2 anyres
+              grid plus the base view, the tower through B2 against the
+              plain tower); then B1 at the chat's prefill shape and B2 at
+              the tiles' shape against their plain versions, timed like
+              phases 2 and 9.
 Then one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -157,6 +176,19 @@ CLI_SHARD_BYTES = 5 * 10**9   # ~4 shards, as the published checkpoint
 CLI_TEST_ITEMS = 64  # the CLI's synthetic MSRVTT test split (one caption a video)
 CLI_TRAIN_ITEMS = 16 # its train split: 4 steps of batch 4
 CLI_VIDEOS = 8       # extract.main's synthetic videos, batch 4
+
+CHAT_FRAMES = 512    # the chat's frame cap (load_video's default): 128 clips, 8192 video tokens
+CHAT_FPS = 1.0       # the synthetic video: CHAT_FRAMES + 2 frames at 1 fps, so ~1 fps
+CHAT_HW = (240, 320) # sampling reaches the cap; MSRVTT-like frames
+CHAT_NEW_TOKENS = 64 # greedy tokens of the chat and of the generate check
+CHAT_PROMPT = "Describe what happens in the video, step by step."
+DECODE_TOL = 0.1     # max |cached decode - teacher-forced full forward| over the 64 steps'
+                     # logits, relative to max |full forward logits|: both sides are bf16
+                     # through 28 layers, the decode's single-token products and the
+                     # prefill's K/V against the full forward's batched products and B1;
+                     # a cache that lost the prompt's K/V (planted in phase 12) must exceed it
+IMAGE_SIDE = 896     # the image path's seeded image: 896 x 896 takes the 2 x 2 grid of
+IMAGE_GRID = "(1x1),...,(2x2)"  # these pinpoints, 4 tiles + the base view at 448
 
 WORDS = ["man", "woman", "dog", "cat", "runs", "jumps", "sings", "cooks",
          "dances", "rides", "park", "kitchen", "stage", "street", "ball", "car",
@@ -1439,24 +1471,59 @@ def write_cli_data(root, cfg):
         np.savez(os.path.join(root, "scores", f"{stem}.npz"), t2v=t2v, v2t=v2t)
 
 
+def check_native_reader(feature_dir, card):
+    """The CLI's features.pack through FeatureStore: its reader must be the
+    native one, and its gather of every video in a seeded order must equal
+    a numpy memmap gather of the same file bit for bit."""
+    from blim_tpu_torch.data.features import FeatureStore
+
+    store = FeatureStore(feature_dir)
+    with open(os.path.join(feature_dir, "features.idx.json")) as f:
+        meta = json.load(f)
+    vids = list(meta["index"])
+    order = np.random.default_rng((SEED, 14)).permutation(len(vids))
+    t = time.perf_counter()
+    native = store.load_many([vids[i] for i in order])
+    native_s = time.perf_counter() - t
+    mm = np.memmap(os.path.join(feature_dir, "features.pack"), dtype=np.dtype(meta["dtype"]),
+                   mode="r", shape=(len(vids), *meta["shape"]))
+    t = time.perf_counter()
+    plain = np.asarray(mm[np.asarray([meta["index"][vids[i]] for i in order])], np.float32)
+    memmap_s = time.perf_counter() - t
+    same = native.dtype == plain.dtype and native.shape == plain.shape and np.array_equal(
+        native.view(np.uint32), plain.view(np.uint32))
+    print(f"[cli] features.pack ({len(vids)} videos {tuple(meta['shape'])} {meta['dtype']}) "
+          f"through FeatureStore: reader {store.reader!r}; gather of all {len(vids)} in a seeded "
+          f"order {native_s * 1e3:.1f} ms, numpy memmap {memmap_s * 1e3:.1f} ms, "
+          f"{'equal' if same else 'NOT equal'} bit for bit [{card}]", flush=True)
+    if store.reader != "native":
+        fail(f"cli: FeatureStore reads features.pack through {store.reader!r}, not the native "
+             f"reader (g++ missing?)")
+    if not same:
+        fail("cli: the native gather differs from the memmap gather")
+
+
 def run_cli(argv, card):
     """pipelines.main.main in-process on the card -> (results, the prefix
     forwards of the engine it built, {wall, peak_gib, evals: [s], epochs:
-    [s], train_stats}, launch counts of the whole run). The run's rank-0 print replaces builtins.print; it is
-    put back after."""
+    [s], train_stats, readers: the `reader` of each FeatureStore gather},
+    launch counts of the whole run). The run's rank-0 print replaces
+    builtins.print; it is put back after."""
     import argparse
     import builtins
     import gc
 
     import torch
 
+    from blim_tpu_torch.data.features import FeatureStore
     from blim_tpu_torch.engine import loop as loop_lib
     from blim_tpu_torch.engine import rerank
     from blim_tpu_torch.kernels import flash_attention as fa
     from blim_tpu_torch.pipelines import main as cli
 
-    engines, times = [], {"evals": [], "epochs": [], "train_stats": []}
-    real = (rerank.RerankEngine, loop_lib.val_one_epoch, loop_lib.train_one_epoch, builtins.print)
+    engines, times = [], {"evals": [], "epochs": [], "train_stats": [], "readers": []}
+    real = (rerank.RerankEngine, loop_lib.val_one_epoch, loop_lib.train_one_epoch, builtins.print,
+            FeatureStore.load_many)
 
     class Engine(real[0]):
         def __init__(self, *a, **k):
@@ -1475,10 +1542,15 @@ def run_cli(argv, card):
             return out
         return run
 
+    def load_many(store, vids):
+        times["readers"].append(store.reader)
+        return real[4](store, vids)
+
     args = argparse.ArgumentParser(parents=[cli.get_args_parser()]).parse_args(argv)
     rerank.RerankEngine = Engine
     loop_lib.val_one_epoch = timed(real[1], "evals")
     loop_lib.train_one_epoch = timed(real[2], "epochs")
+    FeatureStore.load_many = load_many
     fa.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -1487,7 +1559,7 @@ def run_cli(argv, card):
         torch.cuda.synchronize()
     finally:
         rerank.RerankEngine, loop_lib.val_one_epoch, loop_lib.train_one_epoch, \
-            builtins.print = real
+            builtins.print, FeatureStore.load_many = real
     times["wall"] = time.perf_counter() - t
     times["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     counts = fa.counts()
@@ -1572,6 +1644,7 @@ def phase_cli(card):
 
         root = os.path.join(tmp, "data")
         write_cli_data(root, cfg)
+        check_native_reader(os.path.join(root, "MSRVTT", "features"), card)
         out = os.path.join(tmp, "out")
         common = ["--dataset", "MSRVTT", "--data_root", root, "--scores_dir",
                   os.path.join(root, "scores"), "--model_path", ckpt, "--topk", str(TOPK), "--cpn"]
@@ -1590,6 +1663,11 @@ def phase_cli(card):
               f"prefix forwards); blim: {blim_row(res)} [{card}]", flush=True)
         if counts != expected or not prefix_forwards:
             fail(f"cli zero-shot eval: launches {counts} != expected {expected}")
+        print(f"[cli] the zero-shot run's feature gathers read through {times['readers']}",
+              flush=True)
+        if not times["readers"] or set(times["readers"]) != {"native"}:
+            fail(f"cli zero-shot eval: feature gathers read through {times['readers']}, not the "
+                 f"native reader")
         with open(os.path.join(out, "zeroshot", "log.txt")) as f:
             if loop_lib.results_table(res) not in f.read():
                 fail("cli zero-shot eval: log.txt lacks the results table")
@@ -1721,6 +1799,471 @@ def phase_cli(card):
     return dict(load_s=load_s, load_gbps=nbytes / 1e9 / load_s)
 
 
+def importable(names):
+    """{name: True/False}: which of the named modules import here."""
+    import importlib
+
+    found = {}
+    for name in names:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def chat_frames():
+    """CHAT_FRAMES + 2 seeded uint8 frames of CHAT_HW: a random base image
+    rolling sideways a pixel a frame."""
+    rng = np.random.default_rng((SEED, 12))
+    base = rng.integers(0, 256, (*CHAT_HW, 3), dtype=np.uint8)
+    return [np.roll(base, t, axis=1) for t in range(CHAT_FRAMES + 2)]
+
+
+def write_chat_video(path):
+    """chat_frames() at CHAT_FPS as an MJPG AVI written with OpenCV; False
+    when OpenCV cannot open a writer."""
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), CHAT_FPS,
+                             (CHAT_HW[1], CHAT_HW[0]))
+    if not writer.isOpened():
+        return False
+    for frame in chat_frames():
+        writer.write(frame)
+    writer.release()
+    return os.path.getsize(path) > 0
+
+
+def synthetic_load_video(video_path, max_num_frames=512, local_num_frames=4, max_duration=None):
+    """load_video's stand-in without a decoder: chat_frames() sampled by
+    sample_frame_indices at CHAT_FPS, and the time message load_video writes."""
+    from blim_tpu_torch.data.video import sample_frame_indices
+
+    frames = chat_frames()
+    idx = sample_frame_indices(len(frames), CHAT_FPS, max_num_frames, local_num_frames)
+    return (np.stack([frames[i] for i in idx]),
+            f"The video lasts for {len(frames) / CHAT_FPS:.2f} seconds, "
+            f"and {len(idx)} frames are uniformly sampled from it.")
+
+
+class CallTimes:
+    """Context that wraps attributes of modules or objects so each call is
+    timed on the host clock, the card synchronized before and after, into
+    self.s[name]; restores them on exit. `wrap` times a callable passed
+    around instead."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(module or object, attribute name)]
+        self.s = {name: [] for _, name in targets}
+
+    def wrap(self, fn, name):
+        import torch
+
+        self.s.setdefault(name, [])
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.s[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name in self.targets]
+        for obj, name, fn in self.saved:
+            setattr(obj, name, self.wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+class CountOps:
+    """Context counting the aten ops dispatched inside it (views included),
+    into self.n; device-independent."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def llm_decode_bytes(llm):
+    """Bytes of the weights one decode step reads: every layer, the final
+    norm and the LM head (the one embedding row is left out)."""
+    leaves = list(_leaves(llm["layers"])) + [llm["norm"]["scale"], llm["lm_head"]["kernel"]]
+    return sum(t.numel() * t.element_size() for t in leaves if t is not None)
+
+
+def phase_chat(card):
+    """Phase 12: chat and generate at 7B, and the image path, on the card."""
+    import tempfile
+
+    import torch
+
+    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.data import images, video
+    from blim_tpu_torch.data.tokenization import ByteFallbackTokenizer
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import generation, qwen2, umt_vit
+    from blim_tpu_torch.models import videochat_flash as vcf
+    from blim_tpu_torch.pipelines import extract
+
+    t_phase = time.time()
+    cfg = ModelConfig()
+    layers, depth = cfg.llm.num_hidden_layers, cfg.vision.depth
+    found = importable(("decord", "cv2", "PIL"))
+    print("[chat] video decoders that import here: "
+          + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in found.items()), flush=True)
+    t = time.perf_counter()
+    tree = seeded_checkpoint_tree(cfg)
+    torch.cuda.synchronize()
+    print(f"[chat] Qwen2-7B + UMT ViT-L res448 seeded in bf16 on the card in "
+          f"{time.perf_counter() - t:.2f}s", flush=True)
+    tok = ByteFallbackTokenizer()
+    proc = umt_vit.UMTImageProcessor(size=(cfg.vision.image_size,) * 2)
+    featurize = extract.make_featurizer(tree["vision_tower"], cfg, device="cuda")
+
+    # first use of the tower and of the decoder on the card, outside the clock
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    featurize(torch.randn((1, 1, cfg.mm_local_num_frames, 3, cfg.vision.image_size,
+                           cfg.vision.image_size), generator=gen, device="cuda"))
+    warm = qwen2.embed_tokens(tree["llm"], torch.randint(0, 256, (1, 300), device="cuda"))
+    generation.generate_tokens(tree["llm"], cfg.llm, warm,
+                               torch.ones((1, 300), dtype=torch.int32, device="cuda"), 4,
+                               [tok.eos_token_id])
+    torch.cuda.synchronize()
+
+    # 1. chat end to end at the frame cap; generate's inputs are recorded
+    recorded = {}
+    real_generate, real_load = vcf.generate, video.load_video
+
+    def recording_generate(params, config, input_ids, video_embeds, *a, **k):
+        recorded.update(input_ids=list(input_ids), video_embeds=video_embeds)
+        return real_generate(params, config, input_ids, video_embeds, *a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic_chat.avi")
+        written = found["cv2"] and write_chat_video(path)
+        if not written:
+            why = ("OpenCV does not import" if not found["cv2"]
+                   else "OpenCV could not open an MJPG writer")
+            print(f"[chat] load_video replaced by the seeded frames and sample_frame_indices' "
+                  f"time message (no video file): {why}", flush=True)
+            video.load_video = synthetic_load_video
+        timer = CallTimes([(video, "load_video"), (proc, "preprocess"),
+                           (generation, "generate_tokens"), (qwen2, "forward_collect_kv")])
+        timed_featurize = timer.wrap(featurize, "featurize")
+        vcf.generate = recording_generate
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t = time.perf_counter()
+        try:
+            with timer:
+                text, history = vcf.chat(tree, cfg, path, tok, CHAT_PROMPT, timed_featurize, proc,
+                                         max_num_frames=CHAT_FRAMES,
+                                         max_new_tokens=CHAT_NEW_TOKENS)
+                torch.cuda.synchronize()
+        finally:
+            vcf.generate, video.load_video = real_generate, real_load
+        chat_s = time.perf_counter() - t
+    chat_counts = fa.counts()
+    chat_peak = torch.cuda.max_memory_allocated() / 2**30
+    ts = {k: v[0] for k, v in timer.s.items()}
+    ids, vid = recorded["input_ids"], recorded["video_embeds"]
+    prompt_len = len(ids) - 1 + vid.shape[0]
+    chat_expected = dict({k: 0 for k in chat_counts}, flash_fwd=layers, flash_fwd_dense=depth)
+    print(f"[chat] chat at the {CHAT_FRAMES}-frame cap ({vid.shape[0]} video tokens, prompt "
+          f"{prompt_len} tokens, at most {CHAT_NEW_TOKENS} new tokens, greedy): wall {chat_s:.3f}s "
+          f"= load_video {ts['load_video']:.3f}s ({'cv2' if written else 'seeded frames'}) + "
+          f"preprocess {ts['preprocess']:.3f}s + featurize {ts['featurize']:.3f}s + prefill "
+          f"{ts['forward_collect_kv']:.3f}s + decode "
+          f"{ts['generate_tokens'] - ts['forward_collect_kv']:.3f}s + the rest; peak "
+          f"{chat_peak:.2f} GiB; launches {chat_counts} (expected {chat_expected}: {layers} a "
+          f"prefill, {depth} a tower call); reply {len(text)} chars [{card}]", flush=True)
+    if chat_counts != chat_expected:
+        fail(f"chat: launches {chat_counts} != expected {chat_expected}")
+    if len(history) != 2 or history[0]["content"] != CHAT_PROMPT or history[1]["content"] != text:
+        fail(f"chat: the history {history!r} does not hold the turn")
+    want_tokens = CHAT_FRAMES // cfg.mm_local_num_frames * cfg.tokens_per_clip
+    if tuple(vid.shape) != (want_tokens, cfg.llm.hidden_size) or not torch.isfinite(vid).all():
+        fail(f"chat: video embeddings {tuple(vid.shape)} or non-finite")
+
+    # 2. generate on the chat's prompt and video embedding: time to first
+    # token, decode ms/token against the weight-read bound, the cache check
+    ttft = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vcf.generate(tree, cfg, ids, vid, tok, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttft.append(time.perf_counter() - t)
+    timer = CallTimes([(generation, "generate_tokens"), (qwen2, "forward_collect_kv")])
+    fa.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with timer:
+        tokens, step_logits = vcf.generate(tree, cfg, ids, vid, tok, max_new_tokens=CHAT_NEW_TOKENS,
+                                           return_logits=True)
+    gen_counts = fa.counts()
+    gen_peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = step_logits.shape[0]
+    decode_ms = 1e3 * (timer.s["generate_tokens"][0] - timer.s["forward_collect_kv"][0]) / max(
+        steps - 1, 1)
+    weight_bytes = llm_decode_bytes(tree["llm"])
+    bound_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    reply = generation.KeywordsStoppingCriteria(["<|im_end|>"], tok).trim(
+        tok.decode(list(tokens), skip_special_tokens=True))
+    print(f"[chat] generate on the chat's prompt ({prompt_len} tokens): time to first token "
+          + ", ".join(f"{x:.3f}" for x in ttft) + f" s (prefill + LM head + argmax, 3 runs); "
+          f"{steps} steps: prefill {timer.s['forward_collect_kv'][0]:.3f}s, decode "
+          f"{decode_ms:.2f} ms/token against the weight-read bound {bound_ms:.2f} ms/token "
+          f"({weight_bytes / 1e9:.2f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"{bound_ms / decode_ms:.1%} of it); peak {gen_peak:.2f} GiB; launches {gen_counts}; "
+          f"reply {'equal to' if reply == text else 'DIFFERENT from'} the chat's [{card}]",
+          flush=True)
+    if gen_counts != dict({k: 0 for k in gen_counts}, flash_fwd=layers):
+        fail(f"generate: launches {gen_counts}, expected {layers} flash_fwd (one prefill)")
+    real_step = generation._decode_step
+    step_ops = []
+
+    def counted_step(*a):
+        with CountOps() as ops:
+            out = real_step(*a)
+        step_ops.append(ops.n)
+        return out
+
+    generation._decode_step = counted_step
+    try:
+        vcf.generate(tree, cfg, ids, vid, tok, max_new_tokens=2)
+    finally:
+        generation._decode_step = real_step
+    print(f"[chat] one decode step dispatches {step_ops[0]} aten ops (views included): "
+          f"{1e3 * decode_ms / step_ops[0]:.1f} us each at {decode_ms:.2f} ms/token [{card}]",
+          flush=True)
+
+    def teacher_forced(toks):
+        """Full-sequence logits over prompt + toks[:-1] at the steps' positions."""
+        llm = tree["llm"]
+        ids_np = np.asarray(ids)
+        ip = int(np.nonzero(ids_np == -200)[0][0])
+
+        def emb(a):
+            return qwen2.embed_tokens(llm, torch.as_tensor(np.asarray(a, np.int64), device="cuda"))
+
+        seq = torch.cat([emb(ids_np[:ip]), vid.to(llm["embed_tokens"]["embedding"].dtype),
+                         emb(ids_np[ip + 1:]), emb(toks[: steps - 1])])[None]
+        with torch.no_grad():
+            hidden = qwen2.forward_hidden(llm, cfg.llm, seq, torch.ones(
+                seq.shape[:2], dtype=torch.int32, device="cuda"))
+            return qwen2.lm_logits(llm, hidden[:, prompt_len - 1:], cfg.llm)[0]
+
+    fa.reset_counts()
+    full = teacher_forced(tokens)
+    tf_counts = fa.counts()
+    scale = full.abs().max().item()
+    err = (step_logits - full).abs().max().item()
+    agree = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+
+    # planted faults, each re-run through generate and re-checked the same
+    # way: 'prefill', the prompt's K/V missing from the cache (slots masked);
+    # 'position', every decode step's RoPE position one late
+    def prefill_missing(params, config, layers_, emb, cache, cur_len, base_mask, position, *a):
+        base_mask = base_mask.clone()
+        base_mask[:, :prompt_len] = 0
+        return real_step(params, config, layers_, emb, cache, cur_len, base_mask, position, *a)
+
+    def late_position(params, config, layers_, emb, cache, cur_len, base_mask, position, *a):
+        return real_step(params, config, layers_, emb, cache, cur_len, base_mask, position + 1, *a)
+
+    faults = {}
+    for name, planted in (("prefill", prefill_missing), ("position", late_position)):
+        generation._decode_step = planted
+        try:
+            bad_tokens, bad_logits = vcf.generate(tree, cfg, ids, vid, tok,
+                                                  max_new_tokens=CHAT_NEW_TOKENS,
+                                                  return_logits=True)
+        finally:
+            generation._decode_step = real_step
+        bad_full = teacher_forced(bad_tokens)
+        faults[name] = (bad_logits - bad_full).abs().max().item() / bad_full.abs().max().item()
+    print(f"[chat] cache check: the {steps} cached steps' logits vs one teacher-forced full "
+          f"forward (B1 launches {tf_counts['flash_fwd']}): max|d| {err:.4e} = {err / scale:.3e} "
+          f"of max|logits| {scale:.3f} (tol {DECODE_TOL}), argmax agrees on {agree:.4f} of steps; "
+          f"planted faults read: prefill K/V missing {faults['prefill']:.3e}, RoPE position one "
+          f"late {faults['position']:.3e} [{card}]", flush=True)
+    if not torch.isfinite(step_logits).all() or err > DECODE_TOL * scale:
+        fail(f"generate: the cached decode disagrees with the full forward ({err / scale:.3e} > "
+             f"{DECODE_TOL})")
+    if faults["prefill"] <= DECODE_TOL:
+        fail(f"a cache without the prompt's K/V moved the logits by {faults['prefill']:.3e}, not "
+             f"above {DECODE_TOL}: the cache check cannot see it")
+    if tf_counts != dict({k: 0 for k in tf_counts}, flash_fwd=layers):
+        fail(f"teacher-forced forward: launches {tf_counts}")
+    del full, bad_full, step_logits, bad_logits, bad_tokens
+
+    # 3. the image path: a seeded image on a 2 x 2 anyres grid plus the base view
+    rng = np.random.default_rng((SEED, 13))
+    image = rng.integers(0, 256, (IMAGE_SIDE, IMAGE_SIDE, 3), dtype=np.uint8)
+    tiles = images.process_anyres_image_nopad(image, proc, IMAGE_GRID)
+    fa.reset_counts()
+    t = time.perf_counter()
+    feats = vcf.encode_image_tiles(tree, cfg, tiles)
+    merged = vcf.merge_image_patches(feats, (IMAGE_SIDE, IMAGE_SIDE), cfg, IMAGE_GRID)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t
+    image_counts = fa.counts()
+    grid = images.get_anyres_image_grid_shape((IMAGE_SIDE, IMAGE_SIDE), IMAGE_GRID,
+                                              cfg.vision.image_size)
+    tower = tree["vision_tower"]
+    pix = torch.from_numpy(tiles).to(device="cuda", dtype=torch.bfloat16)[:, None]
+    pos_img = umt_vit.build_pos_tables(cfg.vision)[1]
+    with torch.inference_mode():
+        kern = umt_vit.encode_clips(tower, pix, pos_img, cfg.vision).float()
+        kernel_mha = umt_vit.multi_head_attention
+        umt_vit.multi_head_attention = lambda q, k, v, *, causal, scale: reference_attention(
+            q, k, v, None, None, causal, scale)
+        try:
+            plain = umt_vit.encode_clips(tower, pix, pos_img, cfg.vision).float()
+        finally:
+            umt_vit.multi_head_attention = kernel_mha
+    rel = ((kern - plain).norm() / plain.norm()).item()
+    n_tiles = 1 + grid[0] * grid[1]
+    print(f"[chat] image path: {IMAGE_SIDE}x{IMAGE_SIDE} image -> grid {grid[0]}x{grid[1]} + base "
+          f"= {tiles.shape[0]} tiles of {cfg.vision.image_size}^2 ({cfg.vision.patches_per_frame} "
+          f"tokens each) -> encode_image_tiles {tuple(feats.shape)} -> merged {tuple(merged.shape)} "
+          f"in {image_s:.3f}s; launches {image_counts} (expected {depth} flash_fwd_dense); tower "
+          f"through B2 vs plain |d|/|plain| (Frobenius) {rel:.3e} (tol {TOWER_TOL}) [{card}]",
+          flush=True)
+    if tiles.shape[0] != n_tiles or tuple(merged.shape) != (n_tiles * 64, cfg.llm.hidden_size) \
+            or not torch.isfinite(merged).all():
+        fail(f"image path: {tiles.shape[0]} tiles, merged {tuple(merged.shape)}")
+    if image_counts != dict({k: 0 for k in image_counts}, flash_fwd_dense=depth):
+        fail(f"image path: launches {image_counts}")
+    if rel > TOWER_TOL:
+        fail(f"image path: the tower through B2 disagrees with the plain tower ({rel:.3e})")
+    del tree, featurize, vid, recorded, kern, plain, feats, merged, pix
+    torch.cuda.empty_cache()
+
+    # 4. B1 at the chat's prefill shape, B2 at the image tiles' shape
+    b1 = chat_kernel_b1(prompt_len, card)
+    b2 = chat_kernel_b2(n_tiles, card)
+    print(f"[time] phase 12 (chat) took {time.time() - t_phase:.1f}s", flush=True)
+    b1.update(launches_chat=chat_counts["flash_fwd"], launches_generate=gen_counts["flash_fwd"],
+              ttft_s=min(ttft), decode_ms_per_token=decode_ms, decode_bound_ms=bound_ms,
+              chat_s=chat_s, chat_peak_gib=chat_peak)
+    b2.update(launches_chat=chat_counts["flash_fwd_dense"],
+              launches_image=image_counts["flash_fwd_dense"])
+    return b1, b2
+
+
+def chat_kernel_b1(s, card):
+    """B1 against its plain version at the chat's prefill shape (B = 1, S,
+    causal, all-ones mask), timed like phase 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hq, hkv, d = 28, 4, 128
+    q = torch.randn((1, s, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((1, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((1, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    mask = torch.ones((1, s), dtype=torch.int32, device="cuda")
+    before = fa.counts()
+    out = fa.flash_attention(q, k, v, key_mask=mask, query_mask=mask)
+    torch.cuda.synchronize()
+    if fa.counts() != dict(before, flash_fwd=before["flash_fwd"] + 1):
+        fail("chat B1: the wrapper did not launch the kernel once")
+    ref = reference_attention(q, k, v, mask, mask, True, d ** -0.5)
+    if not torch.isfinite(out).all():
+        fail("chat B1: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+    del ref, diff
+    ms = graph_time_ms(raw_fwd(q, k, v, mask), iters=10, replays=2)
+    plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, mask, mask, True, d ** -0.5),
+                           iters=2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=2)
+    bound_ms, bound_by = attention_bound_ms(1, s, hq, hkv, d, mask, mask)
+    print(f"[chat] flash_fwd at the chat's prefill (1, {s}, {hq}, {d}), causal, all-ones mask "
+          f"({-(-s // 128)} q tiles, the last of {s - 128 * (s // 128)} rows): max|d|={err:.3e} "
+          f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) kernel {ms:.4f} ms (raw entry point, CUDA "
+          f"graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
+          f"{bound_ms:.4f} ms ({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound "
+          f"[{card}]", flush=True)
+    if excess > ATTN_ATOL:
+        fail(f"chat B1: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| ({err:.3e})")
+    return dict(shape=[1, s, hq, hkv, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def chat_kernel_b2(n_tiles, card):
+    """B2 against its plain version at the image path's shape (tiles, 784,
+    16, 64), strided views of a packed qkv, timed like phase 9."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+
+    vcfg = ModelConfig().vision
+    s, h = vcfg.patches_per_frame, vcfg.num_attention_heads
+    d = vcfg.hidden_size // h
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((n_tiles, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = fa.counts()
+    out = fa.flash_attention_dense(q, k, v)
+    torch.cuda.synchronize()
+    if fa.counts() != dict(before, flash_fwd_dense=before["flash_fwd_dense"] + 1):
+        fail("chat B2: the wrapper did not launch B2 once")
+    ref = reference_attention(q, k, v, None, None, False, d ** -0.5)
+    if not torch.isfinite(out).all():
+        fail("chat B2: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+    ms = graph_time_ms(raw_fwd(q, k, v, causal=False))
+    plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, None, None, False, d ** -0.5))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bound_ms, bound_by = vit_attention_bound_ms(n_tiles, s, h, d)
+    print(f"[chat] flash_fwd_dense at the image tiles ({n_tiles}, {s}, {h}, {d}) "
+          f"({-(-s // 128)} tiles of 128 rows, the last of {s - 128 * (s // 128)}): max|d|="
+          f"{err:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) kernel {ms:.4f} ms (raw entry point, "
+          f"CUDA graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    if excess > ATTN_ATOL:
+        fail(f"chat B2: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| ({err:.3e})")
+    return dict(shape=[n_tiles, s, h, h, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
 def main():
     if not (ROOT / "blim_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"the blim_tpu_torch package is not next to {Path(__file__).name}")
@@ -1755,11 +2298,12 @@ def main():
     print(f"[time] phases 9-10 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     phase_cli(card)
+    chat_b1, chat_b2 = phase_chat(card)
 
     src = "blim_tpu_torch/kernels/csrc/"
     ref = "blim_tpu/kernels/flash_attention.py:"
     kernels = [{"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-                "replaces": ref + "42", "launches": b1_launches, **record}]
+                "replaces": ref + "42", "launches": b1_launches, **record, "chat": chat_b1}]
     for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
                                ("flash_dq", "flash_bwd.cu", "195"),
                                ("flash_dkv", "flash_bwd.cu", "252")):
@@ -1767,7 +2311,8 @@ def main():
                         "replaces": ref + line, "launches": train["counts"][name],
                         **train_records[name]})
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
-                    "replaces": ref + "42", "launches": extract_st["launches"], **vit_record})
+                    "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
+                    "chat": chat_b2})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

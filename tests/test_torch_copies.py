@@ -1,8 +1,9 @@
 """The port keeps its own copies of the JAX package's JAX-free helpers
 (configs and the HF config reader, tokenizer, prompt layouts, train
 collation and loader, dataset helpers, presets, metric logging, pack
-schedulers, recall and fusion, the results table). Each copy is pinned equal to its original
-here; the extraction slice's copies (the ViT's position tables and resize
+schedulers, recall and fusion, the results table, every conversation
+template, the chat's frame sampling, the feature-pack reader's C++ source).
+Each copy is pinned equal to its original here; the extraction slice's copies (the ViT's position tables and resize
 matrices, the image processor, the frame sampling, chunking and the feature
 store) are pinned in tests/test_torch_vit.py and tests/test_torch_extract.py."""
 
@@ -480,3 +481,49 @@ def test_results_table_fallback_copy_matches(monkeypatch):
     monkeypatch.setitem(sys.modules, "pandas", None)        # the card machine has no pandas
     t, j = tloop.results_table(results), jloop.results_table(results)
     assert t == j and "blim" in t and "70.10" in t
+
+
+# ---------------------------------------------------------------------------
+# the chat slice's copies: every conversation template, the chat's frame
+# sampling, the native feature-pack reader's source
+# ---------------------------------------------------------------------------
+
+TURNS = [("u", "<image>\nWhat happens?"), ("a", "A cat jumps."), ("u", "Then?"), ("a", None)]
+
+
+@pytest.mark.parametrize("name", sorted(jconv.conv_templates))
+def test_every_conversation_template_copy_matches(name):
+    j, t = jconv.conv_templates[name], tconv.conv_templates[name]
+    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+    assert td.pop("sep_style").name == jd.pop("sep_style").name
+    assert td == jd
+    for n in range(1, len(TURNS) + 1):
+        jc, tc = j.copy(), t.copy()
+        for role, m in TURNS[:n]:
+            jc.append_message(jc.roles[0] if role == "u" else jc.roles[1], m)
+            tc.append_message(tc.roles[0] if role == "u" else tc.roles[1], m)
+        assert tc.get_prompt() == jc.get_prompt()
+    assert (tconv.default_conversation.get_prompt()
+            == jconv.default_conversation.get_prompt())
+    assert [s.name for s in tconv.SeparatorStyle] == [s.name for s in jconv.SeparatorStyle]
+
+
+@pytest.mark.parametrize("vlen,fps,cap,lf", [
+    (300, 30.0, 512, 4), (30000, 30.0, 512, 4), (10, 30.0, 512, 4), (0, 25.0, 512, 4),
+    (16, 2.0, 512, 2), (16, 2.0, 4, 2), (514, 1.0, 512, 4), (1000, 0.0, 64, 4), (97, 3.3, 512, 1),
+])
+def test_sample_frame_indices_copy_matches(vlen, fps, cap, lf):
+    from blim_tpu.data.video import sample_frame_indices as jsample
+    from blim_tpu_torch.data.video import sample_frame_indices as tsample
+
+    t, j = tsample(vlen, fps, cap, lf), jsample(vlen, fps, cap, lf)
+    np.testing.assert_array_equal(t, j)
+    assert t.dtype == j.dtype and len(t) % lf == 0
+
+
+def test_feature_pack_source_is_a_byte_copy():
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    copy = repo / "blim_tpu_torch" / "data" / "csrc" / "feature_pack.cpp"
+    assert copy.read_bytes() == (repo / "native" / "feature_pack.cpp").read_bytes()

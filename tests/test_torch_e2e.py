@@ -145,10 +145,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("adapters/lora", "checkpoints/convert", "checkpoints/safetensors_io",
-                   "checkpoints/state_io", "core/config", "data/collate", "data/datasets",
-                   "data/features", "data/prompts", "data/tokenization", "engine/train",
+                   "checkpoints/state_io", "core/config", "data/collate", "data/conversation",
+                   "data/datasets", "data/features", "data/images", "data/native_pack",
+                   "data/prompts", "data/tokenization", "data/video", "engine/train",
                    "engine/loop", "kernels/flash_attention", "kernels/attention",
-                   "models/qwen2", "models/projector", "models/umt_vit",
+                   "models/generation", "models/qwen2", "models/projector", "models/umt_vit",
                    "models/videochat_flash", "pipelines/configs", "pipelines/extract",
                    "pipelines/main", "scoring/criteria", "utils/distributed",
                    "utils/logging"):
