@@ -4,8 +4,10 @@ blim_tpu/checkpoints/orbax_io.py).
 `{output_dir}/{name}/` holds the fp32 trainable tree (LoRA factors and
 visual_head) as `trainable.safetensors` (names are the tree paths joined
 with "/"), the AdamW `state_dict()` as `optimizer.pt`, and `meta.json` with
-the JAX package's keys (epoch, n_trainable, args). Only rank 0 writes.
-Resuming checks the exact trainable parameter count.
+the JAX package's keys (epoch, n_trainable, args). Only rank 0 writes;
+every rank of a process group calls `save_checkpoint` and waits at a
+barrier until the write is done, so no rank reads a checkpoint that rank 0
+is still writing. Resuming checks the exact trainable parameter count.
 
 A checkpoint the JAX package wrote is an Orbax tree, which needs `orbax`
 to read: it is not read here.
@@ -20,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from blim_tpu_torch.checkpoints import safetensors_io
-from blim_tpu_torch.utils.distributed import is_main_process
+from blim_tpu_torch.utils.distributed import barrier, is_main_process
 
 TRAINABLE_FILE = "trainable.safetensors"
 OPTIMIZER_FILE = "optimizer.pt"
@@ -61,18 +63,19 @@ def save_checkpoint(
     epoch: int,
     args: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write {output_dir}/{name}/ (rank 0 only) and return its path."""
+    """Write {output_dir}/{name}/ on rank 0, then wait for every rank at a
+    barrier; returns the path."""
     path = os.path.abspath(os.path.join(output_dir, name))
-    if not is_main_process():
-        return path
-    os.makedirs(path, exist_ok=True)
-    flat = {k: t.detach().to(torch.float32) for k, t in _flat(trainable).items()}
-    safetensors_io.save_file(flat, os.path.join(path, TRAINABLE_FILE))
-    if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(path, OPTIMIZER_FILE))
-    with open(os.path.join(path, META_FILE), "w") as f:
-        json.dump({"epoch": int(epoch), "n_trainable": count_params(trainable),
-                   "args": args or {}}, f)
+    if is_main_process():
+        os.makedirs(path, exist_ok=True)
+        flat = {k: t.detach().to(torch.float32) for k, t in _flat(trainable).items()}
+        safetensors_io.save_file(flat, os.path.join(path, TRAINABLE_FILE))
+        if optimizer is not None:
+            torch.save(optimizer.state_dict(), os.path.join(path, OPTIMIZER_FILE))
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump({"epoch": int(epoch), "n_trainable": count_params(trainable),
+                       "args": args or {}}, f)
+    barrier()
     return path
 
 

@@ -3,8 +3,10 @@
 Train: per batch, collate into the static layouts, move to the device, run
 the train step, abort the whole run on a non-finite loss, and log the
 losses and the step's learning rate through a MetricLogger; the epoch's
-averages come back. Eval: the 6-matrix evaluation over a dataset, fused
-into the recall tables of the five scorings.
+averages come back, summed over the process group's ranks. Eval: the
+6-matrix evaluation over a dataset, fused into the recall tables of the
+five scorings; in a process group every rank runs it, and the merged
+matrices make the tables equal on every rank.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""LoRA fine-tuning on one GPU (port of blim_tpu/engine/train.py).
+"""LoRA fine-tuning, one GPU a process (port of blim_tpu/engine/train.py).
 
   * trainable subset = LoRA adapters (LLM q/k/v/o + lm_head, projector MLPs)
     + the fp32 `visual_head`, all fp32 leaf tensors; the frozen 7B needs no
@@ -11,10 +11,20 @@
     p (1 - lr wd) - lr adam, equals the JAX chain's -lr (adam + wd p);
   * gradient accumulation in place of optax.MultiSteps: the mean of
     `accum_iter` micro-step gradients, and the schedule counts applied
-    updates, as MultiSteps' inner state does.
+    updates, as MultiSteps' inner state does;
+  * data parallel over a process group with DDP's semantics: each rank
+    takes the loss over its own batch, and at each applied update the
+    trainable gradients are averaged over the ranks (one flat fp32
+    all-reduce, divided by the world size); a micro-step that only
+    accumulates makes no collective (DDP's no_sync). The trainable tree is
+    broadcast from rank 0 when the state is made, so every rank holds the
+    same tree bit for bit. The VTG loss is a mean over label tokens, so the
+    average of two ranks' gradients equals the gradient of their joined
+    batch only when both carry the same label count.
 
-The multi-GPU mesh and sharded frozen weights of the JAX package are not
-ported yet.
+The JAX package's model-axis sharding of the frozen weights
+(`param_shardings`) is TPU-only and has no counterpart: every rank holds
+the whole frozen model.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from blim_tpu_torch.core.device import DeviceLike, resolve_device
 from blim_tpu_torch.data.prompts import TVGLayout, VTGLayout
 from blim_tpu_torch.models import videochat_flash as vcf
 from blim_tpu_torch.scoring import criteria
+from blim_tpu_torch.utils import distributed as dist
 
 Params = Dict[str, Any]
 
@@ -104,8 +115,30 @@ class TrainState:
     applied: int = 0    # optimizer updates applied: the schedule's count
 
 
+def broadcast_trainable(trainable: Params) -> None:
+    """Overwrite every rank's trainable leaves with rank 0's, in place (a
+    world of one keeps its own)."""
+    dist.broadcast_(_leaves(trainable), src=0)
+
+
 def init_train_state(trainable: Params, cfg: TrainConfig, steps_per_epoch: int) -> TrainState:
+    """The state over `trainable`, after broadcasting it from rank 0."""
+    broadcast_trainable(trainable)
     return TrainState(trainable, make_optimizer(trainable, cfg), steps_per_epoch)
+
+
+@torch.no_grad()
+def average_gradients(leaves: List[torch.Tensor]) -> None:
+    """Replace each leaf's .grad by its mean over the ranks: one flat fp32
+    all-reduce, then a division by the world size (nothing outside a
+    process group)."""
+    if not dist.in_group():
+        return
+    grads = [p.grad for p in leaves]
+    flat = dist.all_reduce_sum_(torch.cat([g.reshape(-1).float() for g in grads]))
+    flat.div_(dist.get_world_size())
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def loss_fn(
@@ -149,9 +182,11 @@ def make_train_step(config: ModelConfig, train_cfg: TrainConfig, vtg_layout: VTG
     """Returns step(state, frozen, batch, video_vocab, generator) -> (state,
     metrics). The batch (collate_train_batch's arrays, or tensors) moves to
     the device; the video features take the projector's dtype. The state is
-    updated in place and returned. Metrics: loss, vtg_loss, tvg_loss and
-    grad_norm (the global norm of this micro-step's gradients), as 0-d
-    tensors on the device."""
+    updated in place and returned. In a process group each applied update
+    averages the gradients over the ranks first. Metrics: loss, vtg_loss,
+    tvg_loss (this rank's batch) and grad_norm (the global norm of this
+    rank's micro-step gradients, before any averaging), as 0-d tensors on
+    the device."""
     dev = resolve_device(device)
     ws, wl = vtg_layout.label_window
     vtg_geom = (vtg_layout.video_start, ws, wl)
@@ -176,6 +211,7 @@ def make_train_step(config: ModelConfig, train_cfg: TrainConfig, vtg_layout: VTG
             if accum > 1:
                 for p in leaves:
                     p.grad.div_(accum)
+            average_gradients(leaves)
             lr = cosine_lr(state.applied / max(state.steps_per_epoch, 1), train_cfg)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr

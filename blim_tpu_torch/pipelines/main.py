@@ -1,4 +1,4 @@
-"""Train / eval CLI on one GPU (port of blim_tpu/pipelines/main.py).
+"""Train / eval CLI, one GPU a process (port of blim_tpu/pipelines/main.py).
 
 The same flags and run flow: build the model and tokenizer, install LoRA,
 then either evaluate (zero-shot, or fine-tuned with --resume) with the
@@ -19,9 +19,17 @@ fp32 on the CPU (--device cpu); visual_head and the LoRA factors are fp32
 on both. `main` returns the last results dict (the eval's, or the last
 epoch's eval when training).
 
+Data parallel under `torchrun` (or any launcher that sets RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT): one process a GPU,
+NCCL on the card and gloo with --device cpu; each rank runs on
+cuda:LOCAL_RANK, draws its LoRA dropout from --seed + rank, trains on its
+shard of every epoch's shuffle (one order from --seed) with the gradients
+averaged over the ranks, and scores its shard of the rerank packs; only
+rank 0 prints and writes logs and checkpoints:
+    torchrun --nproc_per_node 8 -m blim_tpu_torch.pipelines.main ...
+
 Left out: --mesh_model (tensor parallelism over a TPU mesh) and
---profile_dir (profiler traces); --batch_size_eval is accepted, but the
-port's engine sizes its steps by a token budget (engine/rerank.py).
+--profile_dir (profiler traces).
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ def get_args_parser():
     parser = argparse.ArgumentParser("BLiM-torch", add_help=False)
     parser.add_argument("--batch_size", default=4, type=int, help="train batch per process")
     parser.add_argument("--batch_size_eval", default=16, type=int,
-                        help="accepted for flag parity; the engine's steps follow a token budget")
+                        help="pairs a step of the naive per-pair schedule (the packed passes "
+                             "size their steps by a token budget)")
     parser.add_argument("--epochs", default=5, type=int)
     parser.add_argument("--accum_iter", default=1, type=int)
     parser.add_argument("--model_path", default="./pretrained/VideoChat-Flash-Qwen2-7B_res448", type=str)
@@ -88,7 +97,6 @@ def main(args):
     from blim_tpu_torch.checkpoints import state_io
     from blim_tpu_torch.checkpoints.convert import init_params, load_videochat_flash
     from blim_tpu_torch.core.config import ModelConfig, load_model_config, tiny_model_config
-    from blim_tpu_torch.core.device import resolve_device
     from blim_tpu_torch.data.datasets import TrainLoader, load_dataset, load_iv2_scores
     from blim_tpu_torch.data.prompts import make_tvg_layout, make_vtg_layout
     from blim_tpu_torch.data.tokenization import load_tokenizer
@@ -97,13 +105,13 @@ def main(args):
     from blim_tpu_torch.engine.rerank import RerankEngine
     from blim_tpu_torch.utils import distributed as dist
 
-    dev = resolve_device(args.device)
+    dev = dist.device_for_rank(args.device)
     if getattr(args, "preset", False):
         from blim_tpu_torch.pipelines.configs import apply_preset
 
         apply_preset(args, zeroshot=args.eval and not args.resume)
 
-    dist.init_distributed_mode()
+    dist.init_distributed_mode(device=dev)
     print(f"job dir: {os.path.dirname(os.path.realpath(__file__))}")
     print(str(args).replace(", ", ",\n"))
     if args.output_dir:
@@ -176,12 +184,13 @@ def main(args):
         if not args.eval:
             args.start_epoch = epoch0 + 1
         print(f"resumed from {args.resume} (epoch {epoch0})")
+    train_lib.broadcast_trainable(trainable)   # every rank starts from rank 0's tree
 
     has_tvg = args.resume != "" or not args.eval
 
     # one engine for the run; each eval swaps in the trainable tree as it is then
     engine = RerankEngine(params, config, vtg_layout, tvg_layout, lora_scale=lora_cfg.scale,
-                          device=dev)
+                          batch_size=args.batch_size_eval, device=dev)
 
     def run_eval():
         engine.set_trainable(trainable["lora"] if has_tvg else None,
@@ -223,19 +232,20 @@ def main(args):
             video_vocab, tokenizer, vtg_layout, tvg_layout, epoch,
             generator=torch.Generator(device=dev).manual_seed(seed * 1000 + epoch), device=dev,
         )
-        if dist.is_main_process() and args.output_dir:
+        # every rank calls save_checkpoint: rank 0 writes, all wait for it
+        if args.output_dir:
             state_io.save_checkpoint(
                 args.output_dir, f"epoch{epoch}", trainable, optimizer, epoch, vars(args)
             )
 
-        results = run_eval()
+        results = run_eval()   # the same on every rank (merged scores)
+        cur_r1 = results["blim"]["t2v_r1"] + results["blim"]["v2t_r1"]
+        if args.output_dir and best_r1 < cur_r1:
+            best_r1 = cur_r1
+            state_io.save_checkpoint(
+                args.output_dir, "checkpoint_best", trainable, optimizer, epoch, vars(args)
+            )
         if dist.is_main_process():
-            cur_r1 = results["blim"]["t2v_r1"] + results["blim"]["v2t_r1"]
-            if args.output_dir and best_r1 < cur_r1:
-                best_r1 = cur_r1
-                state_io.save_checkpoint(
-                    args.output_dir, "checkpoint_best", trainable, optimizer, epoch, vars(args)
-                )
             log_stats = {
                 "epoch": epoch,
                 **{f"train_{k}": v for k, v in train_stats.items()},

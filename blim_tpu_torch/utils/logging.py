@@ -2,9 +2,9 @@
 blim_tpu/utils/logging.py).
 
 `SmoothedValue` keeps a window's median and mean beside global averages;
-`MetricLogger.log_every` prints iteration and data times and an ETA. The
-port runs one process (utils/distributed.py), so synchronizing the global
-averages across processes leaves them as they are.
+`MetricLogger.log_every` prints iteration and data times and an ETA.
+Synchronizing sums the global (count, total) over the process group
+(utils/distributed.py); outside a group nothing changes.
 """
 
 from __future__ import annotations
@@ -32,12 +32,13 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self) -> None:
-        """Sum (count, total) over processes: one process here, so nothing
-        changes (the multi-GPU reduction is not ported yet)."""
-        from blim_tpu_torch.utils.distributed import get_world_size
+        """Sum (count, total) over the process group (fp64); the window
+        stays this process's."""
+        from blim_tpu_torch.utils import distributed as dist
 
-        if get_world_size() > 1:
-            raise NotImplementedError("cross-process metric reduction is not ported")
+        if dist.in_group():
+            count, total = dist.all_reduce_sum(np.asarray([self.count, self.total], np.float64))
+            self.count, self.total = int(count), float(total)
 
     @property
     def median(self) -> float:

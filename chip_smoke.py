@@ -32,6 +32,17 @@ Phases, one line each (all numbers beside the card's name and power limit):
               naive full-sequence score_tvg, and the same pairs re-scored
               with a planted segment, position or bf16-product fault, to show
               what the tolerance can see;
+  5b. naive   the naive per-pair schedule (evaluation(shared_prefix=False):
+              16 pairs a full-sequence forward, the candidate grids' priors a
+              second forward) at NAIVE_ITEMS on phase 5's weights and LoRA
+              tree, against the packed evaluation of the same inputs (VTG
+              within GRID_VTG_TOL on the max and GRID_VTG_MEAN_TOL on the
+              mean, TVG within TVG_TOL, the same fill cells);
+              B1 launches = 28 x its forwards; the packed evaluation re-run
+              with a planted VTG segment or position fault must exceed one of
+              the two VTG limits; then phase 13's one-process
+              yardsticks are kept (phases 3 and 5's matrices; after phase 8,
+              DP_TRAIN_STEPS train steps accumulated over the batch's parts);
   6. train-kernels  B1-lse, B3 (flash_dq) and B4 (flash_dkv) against their
               plain versions at the train step's VTG and TVG shapes, timed
               like phase 2 (library yardstick: SDPA forward, and SDPA's
@@ -90,6 +101,31 @@ Phases, one line each (all numbers beside the card's name and power limit):
               plain tower); then B1 at the chat's prefill shape and B2 at
               the tiles' shape against their plain versions, timed like
               phases 2 and 9.
+ 13. dp       data parallel over processes (torch.multiprocessing spawn, each
+              group joined within DP_TIMEOUT_S and killed on expiry; a rank's
+              failure fails the script): 13a, DP_WORLD gloo ranks sharing
+              cuda:0 each build phase 3's 7B and inputs and phase 5's LoRA
+              tree, run both flows at ITEMS with the packs sharded and the
+              scores merged, and are held to phases 3 and 5's matrices
+              (DP_VTG_TOL / DP_VTG_MEAN_TOL VTG, TVG_TOL TVG; the VTG cells
+              whose pack a rank scored in a step of the one-process step's
+              batch size within DP_SAME_SHAPE_TOL), to each other bit for
+              bit, to
+              disjoint pack shards covering the one-process pack count, and
+              to B1 = 28 x their prefix forwards; then DP_TRAIN_STEPS
+              data-parallel LoRA train steps on their halves of a B = TRAIN_B
+              batch: trees identical across ranks bit for bit, the applied
+              gradient within GRADCHECK_TOL of the one-process step's (the
+              mean of the halves' gradients) and the first step's tree too,
+              112 / 56 / 56 B1-lse / B3 / B4 launches a rank a step; a
+              control rank at world 1 (gloo, every pack in its shard, so
+              every step as in one process) runs the fine-tuned flow, held
+              to phase 5's matrices within DP_SAME_SHAPE_TOL;
+              13b, pipelines.main under a torchrun-style environment at world
+              1 on phase 11's synthetic MSRVTT root and the seeded 7B: NCCL,
+              the collectives counted, a zero-shot eval whose table equals
+              the same eval without the environment, and a one-epoch run;
+              13c, with two or more cards, 13a with one NCCL rank a card.
 Then one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -151,6 +187,17 @@ WARM_ITEMS = 64      # queries in the untimed run before it
 TOPK = 16
 CAPTION_TOKENS = 96  # caption budget of the VTG and TVG layouts
 SEED = 0
+NAIVE_ITEMS = 32     # the naive schedule's check: 4 grids of NAIVE_ITEMS x TOPK pairs, 16
+                     # a step, 6 x 32 forwards of 16 x ~440 tokens
+GRID_VTG_TOL = 1e-1  # max |naive - packed| over a whole grid's VTG scores (phase 5b): the
+                     # two schedules compute every score in another order. PACKED_TOL was
+                     # set on 8 pairs (their max 2-3e-2 on an H100); over phase 5b's 1,536
+                     # cells the tail of the same bf16 spread reached 5.4e-2 (0.43% of
+                     # ~12.6), so a whole grid takes twice PACKED_TOL on its max and
+GRID_VTG_MEAN_TOL = 2e-2  # this on its mean |a - b|, which a fault moving every score exceeds;
+                     # phase 5b re-runs the packed side with a planted segment and position
+                     # fault, each of which must exceed one of the two (on an H100: clean
+                     # 5.4e-2 / 1.3e-2, segment 1.41 / 0.31, position one late 0.68 / 0.16)
 
 TRAIN_B = 4          # train batch, 64-video vocabulary, lr 1e-4 without warmup,
 TRAIN_VOCAB = 64     # 100 steps an epoch: the JAX package's train-step bench
@@ -187,6 +234,21 @@ DECODE_TOL = 0.1     # max |cached decode - teacher-forced full forward| over th
                      # through 28 layers, the decode's single-token products and the
                      # prefill's K/V against the full forward's batched products and B1;
                      # a cache that lost the prompt's K/V (planted in phase 12) must exceed it
+DP_WORLD = 2         # phase 13a: ranks sharing the one card (gloo: NCCL refuses two ranks a card)
+DP_CARDS = 4         # phase 13c: at most this many cards, one NCCL rank each
+DP_TRAIN_STEPS = 2   # data-parallel LoRA train steps; each rank takes TRAIN_B // world rows
+DP_TIMEOUT_S = 420   # a group of ranks, spawn to join; killed after it
+DP_VTG_TOL = PACKED_TOL   # max |rank - one process| over phase 13's VTG matrices. Sharding
+                     # alone moves only the packs that a rank scores in a step of another
+                     # batch size than one process does (other GEMM shapes): on an H100,
+                     # 213 of 8,192 cells at 2 ranks, by up to 4.2e-2 with the LoRA on and
+                     # 2.9e-6 without; every other cell, and a world-1 rank, bit for bit
+DP_VTG_MEAN_TOL = 1e-3    # its mean |rank - one process| (1.7e-4 on an H100): a shard whose
+                     # scores land on the wrong pairs moves the mean by ~1
+DP_SAME_SHAPE_TOL = 1e-5  # max |rank - one process| where the step that scored a cell's pack
+                     # had the one-process step's batch size (the world-1 control, and the
+                     # cells of the sharded ranks whose step kept its size): 0 on an H100
+DP_GROUP_TIMEOUT_S = 180  # the process group's timeout: one collective's longest wait
 IMAGE_SIDE = 896     # the image path's seeded image: 896 x 896 takes the 2 x 2 grid of
 IMAGE_GRID = "(1x1),...,(2x2)"  # these pinpoints, 4 tiles + the base view at 448
 
@@ -649,11 +711,12 @@ def setup_finetuned(flow):
                 tvg_layout=make_tvg_layout(tok, cfg.num_clips, CAPTION_TOKENS))
 
 
-def run_flow(flow, n, timings=None, finetuned=None):
+def run_flow(flow, n, timings=None, finetuned=None, shared_prefix=True):
     """One evaluation (CPN on, TOPK) of n synthetic items on a fresh engine,
     synchronized: the zero-shot flow, or with `finetuned` (setup_finetuned)
-    the fine-tuned flow, TVG directions and LoRA on. Returns (inputs,
-    engine, t2v, v2t, seconds)."""
+    the fine-tuned flow, TVG directions and LoRA on; shared_prefix=False
+    runs the naive per-pair schedule. Returns (inputs, engine, t2v, v2t,
+    seconds)."""
     import torch
 
     from blim_tpu_torch.engine.evaluation import evaluation
@@ -667,7 +730,8 @@ def run_flow(flow, n, timings=None, finetuned=None):
     torch.cuda.synchronize()
     t = time.time()
     t2v, v2t = evaluation(engine, inputs, tok, "MSRVTT", topk=TOPK, cpn=True,
-                          has_tvg=finetuned is not None, verbose=False, timings=timings)
+                          has_tvg=finetuned is not None, verbose=False, timings=timings,
+                          shared_prefix=shared_prefix)
     torch.cuda.synchronize()
     return inputs, engine, t2v, v2t, time.time() - t
 
@@ -724,7 +788,8 @@ def phase_slice(card):
     print(f"[slice] recall r_mean: " + ", ".join(
         f"{k} {v['r_mean']}" for k, v in res.items()), flush=True)
     return dict(flow=flow, inputs=inputs, v2t=v2t, v_rows=v_rows, v_cols=v_cols,
-                launches=launches)
+                launches=launches, zeroshot=dict(t2v=t2v, v2t=v2t, packs=pack_count(engine),
+                                                 qps=n / elapsed))
 
 
 def _leaves(tree):
@@ -848,6 +913,7 @@ def phase_finetuned(st, card):
     launches = fa.launches
     others = sum(fa.counts().values()) - launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    packs = pack_count(engine)      # before tvg_controls scores more packs on this engine
     n = ITEMS
     layers = cfg.llm.num_hidden_layers
     expected = layers * engine.prefix_forwards
@@ -926,7 +992,133 @@ def phase_finetuned(st, card):
             fail(f"a planted {fault} fault moved the TVG scores by {controls[fault]}, not "
                  f"above {TVG_TOL}: the packed-vs-naive check cannot see it")
     print(f"[time] phase 5 (finetuned) took {time.time() - t0:.1f}s", flush=True)
-    return dict(launches=launches, qps=n / elapsed)
+    return dict(launches=launches, qps=n / elapsed, ft=ft, t2v=t2v, v2t=v2t, packs=packs)
+
+
+def pack_count(engine):
+    """The packs of the sharded passes (VTG, TVG, TVG prior) in the whole
+    evaluation: each bucket's m."""
+    return sum(m for _name, _bucket, _lo, _hi, m in engine.pack_shards)
+
+
+VTG_MATRICES = [("v2t", "candidate_likelihood"), ("v2t", "candidate_prior"),
+                ("t2v", "query_likelihood")]
+TVG_MATRICES = [("v2t", "query_likelihood"), ("t2v", "candidate_likelihood"),
+                ("t2v", "candidate_prior")]
+
+
+def matrix_gaps(got, want, names):
+    """({direction/name: max |got - want| over the scored cells}, whether
+    the fill cells (-100) are the same cells in both, the mean |got - want|
+    over every scored cell of the named matrices)."""
+    gaps, same_fill, diffs = {}, True, [np.zeros(0)]
+    for direction, name in names:
+        g, w = got[direction][name], want[direction][name]
+        fill = w == -100.0
+        same_fill &= bool(np.array_equal(g == -100.0, fill))
+        diffs.append(np.abs(g[~fill] - w[~fill]))
+        gaps[f"{direction}/{name}"] = float(diffs[-1].max()) if diffs[-1].size else 0.0
+    d = np.concatenate(diffs)
+    return gaps, same_fill, float(d.mean()) if d.size else 0.0
+
+
+def vtg_grid_controls(flow, ft, naive):
+    """Phase 5b's packed evaluation re-run with one VTG fault planted at a
+    time -> {name: (max |d|, mean |d|)} over its VTG matrices against the
+    naive schedule's (`naive`: {"t2v", "v2t"}). Faults: 'segment', the
+    packed suffix forward without its segment mask (a caption also attends
+    to the captions before it in its pack row); 'position', the packed
+    suffix scored one position late (likelihoods and priors)."""
+    import torch
+
+    from blim_tpu_torch.models import qwen2
+    from blim_tpu_torch.models import videochat_flash as vcf
+
+    forward, score = qwen2.forward_packed_suffix, vcf.score_vtg_packed
+
+    def one_segment(params, config, emb, kv, seg, *args, **kw):
+        return forward(params, config, emb, kv, torch.where(seg >= 0, 0, seg), *args, **kw)
+
+    def late_position(params, config, kv, ids, segs, poss, *args, **kw):
+        return score(params, config, kv, ids, segs, poss + 1, *args, **kw)
+
+    out = {}
+    for name, (module, attr, fn) in {"segment": (qwen2, "forward_packed_suffix", one_segment),
+                                     "position": (vcf, "score_vtg_packed", late_position)}.items():
+        setattr(module, attr, fn)
+        try:
+            _, _, t2v, v2t, _ = run_flow(flow, NAIVE_ITEMS, finetuned=ft)
+        finally:
+            qwen2.forward_packed_suffix, vcf.score_vtg_packed = forward, score
+        gaps, _, mean = matrix_gaps(naive, {"t2v": t2v, "v2t": v2t}, VTG_MATRICES)
+        out[name] = (max(gaps.values()), mean)
+    return out
+
+
+def phase_naive(st, fine, card):
+    """Phase 5b: the naive per-pair schedule (evaluation(shared_prefix=False),
+    the fine-tuned flow with CPN on) at NAIVE_ITEMS on phase 5's weights and
+    LoRA tree, against the packed evaluation of the same inputs: VTG
+    matrices within GRID_VTG_TOL (max) and GRID_VTG_MEAN_TOL (mean), TVG
+    within TVG_TOL, the same fill cells;
+    B1 launches = 28 x the naive forwards (16 pairs of the full sequence a
+    forward, a second forward for the candidate grids' priors); then
+    vtg_grid_controls' segment and position faults, each of which must
+    exceed GRID_VTG_TOL or GRID_VTG_MEAN_TOL."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.time()
+    flow, ft = st["flow"], fine["ft"]
+    layers = flow[0].llm.num_hidden_layers
+    _, packed_engine, pt2v, pv2t, packed_s = run_flow(flow, NAIVE_ITEMS, finetuned=ft)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    _, engine, nt2v, nv2t, naive_s = run_flow(flow, NAIVE_ITEMS, finetuned=ft,
+                                              shared_prefix=False)
+    counts = fa.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = dict({k: 0 for k in counts}, flash_fwd=layers * engine.naive_forwards)
+    naive, packed = {"t2v": nt2v, "v2t": nv2t}, {"t2v": pt2v, "v2t": pv2t}
+    vtg, vtg_fill, vtg_mean = matrix_gaps(naive, packed, VTG_MATRICES)
+    tvg, tvg_fill, _ = matrix_gaps(naive, packed, TVG_MATRICES)
+    vtg_d = np.concatenate([np.abs(naive[d][n] - packed[d][n])[packed[d][n] != -100.0]
+                            for d, n in VTG_MATRICES])
+    pairs = NAIVE_ITEMS * TOPK
+    print(f"[naive] fine-tuned flow at {NAIVE_ITEMS} items, topk {TOPK}: naive schedule "
+          f"{naive_s:.2f}s ({engine.steps} steps of {engine.batch_size} pairs, "
+          f"{engine.naive_forwards} full-sequence forwards of {engine.batch_size} x "
+          f"{flow[3].seq_len} VTG / {ft['tvg_layout'].seq_len} TVG tokens; 4 grids of {pairs} "
+          f"pairs, the 2 candidate grids with a prior forward), packed {packed_s:.2f}s "
+          f"({packed_engine.steps} steps); peak {peak_gb:.2f} GiB; max|naive - packed| VTG "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vtg.items())
+          + f" (tol {GRID_VTG_TOL}), over its {vtg_d.size} cells mean {vtg_mean:.3e} (tol "
+          f"{GRID_VTG_MEAN_TOL}), 99th percentile {np.percentile(vtg_d, 99):.3e}, "
+          f"{int((vtg_d > PACKED_TOL).sum())} cells above PACKED_TOL; TVG "
+          + ", ".join(f"{k} {v:.3e}" for k, v in tvg.items()) + f" (tol {TVG_TOL}); fill cells "
+          f"{'the same' if vtg_fill and tvg_fill else 'DIFFERENT'}; launches {counts} "
+          f"(expected {expected}) [{card}]", flush=True)
+    if counts != expected or not engine.naive_forwards:
+        fail(f"naive schedule: launches {counts} != expected {expected}")
+    if not (vtg_fill and tvg_fill):
+        fail("naive schedule: the fill cells differ from the packed evaluation's")
+    if not all(np.isfinite(m[k]).all() for m in (nt2v, nv2t) for k in m):
+        fail("naive schedule: a non-finite score")
+    if max(vtg.values()) > GRID_VTG_TOL or vtg_mean > GRID_VTG_MEAN_TOL \
+            or max(tvg.values()) > TVG_TOL:
+        fail("naive schedule: disagrees with the packed evaluation")
+    controls = dict(clean=(max(vtg.values()), vtg_mean), **vtg_grid_controls(flow, ft, naive))
+    print("[naive] the packed evaluation re-run, max / mean |naive - packed| over the VTG "
+          "matrices: " + ", ".join(f"{k} {m:.3e} / {a:.3e}" for k, (m, a) in controls.items())
+          + f" (tol {GRID_VTG_TOL} / {GRID_VTG_MEAN_TOL}) [{card}]", flush=True)
+    for fault in ("segment", "position"):
+        m, a = controls[fault]
+        if m <= GRID_VTG_TOL and a <= GRID_VTG_MEAN_TOL:
+            fail(f"a planted VTG {fault} fault moved the grid by max {m:.3e}, mean {a:.3e}, "
+                 f"within {GRID_VTG_TOL} / {GRID_VTG_MEAN_TOL}: the check cannot see it")
+    print(f"[time] phase 5b (naive) took {time.time() - t0:.1f}s", flush=True)
+    return dict(launches=counts["flash_fwd"], forwards=engine.naive_forwards, seconds=naive_s)
 
 
 def _named_leaves(tree, prefix=""):
@@ -1120,6 +1312,529 @@ def phase_gradcheck(st, card):
         fail(f"gradcheck: launches {k_counts} / {p_counts}, expected {expected} / none")
     if abs(k_loss - p_loss) > GRADCHECK_LOSS_TOL or worst[0] > GRADCHECK_TOL:
         fail("gradcheck: kernels and plain attention disagree")
+
+
+def dp_train_setup(flow, parts, accum=1):
+    """Phase 13's train step: phase 7's settings (lr 1e-4, no warmup, 100
+    steps an epoch, LoRA dropout on) with accum_iter `accum`, one B = TRAIN_B
+    batch from the seed split into `parts` equal parts, the trainable tree
+    from SEED (broadcast from rank 0 in a group), the video vocabulary."""
+    import torch
+
+    from blim_tpu_torch.engine import train as train_lib
+
+    cfg, _, tok, vtg_layout = flow
+    tvg_layout, batch, vocab = train_setup(cfg, tok, vtg_layout, 13)
+    full, b = batch(TRAIN_B), TRAIN_B // parts
+    split = [{k: v[i * b: (i + 1) * b] for k, v in full.items()} for i in range(parts)]
+    tcfg = train_lib.TrainConfig(lr=1e-4, warmup_epochs=0.0, epochs=1, accum_iter=accum)
+    trainable = train_lib.init_trainable(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, tcfg,
+        visual_head=torch.full((cfg.llm.hidden_size, cfg.mm_hidden_size), 0.02))
+    state = train_lib.init_train_state(trainable, tcfg, steps_per_epoch=100)
+    step = train_lib.make_train_step(cfg, tcfg, vtg_layout, tvg_layout, device="cuda")
+    return state, step, split, torch.from_numpy(vocab).cuda()
+
+
+def dropout_generator(part):
+    """The LoRA dropout stream of batch part `part` (rank `part` in phase 13)."""
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(SEED + 100 + part)
+
+
+def snapshot(tree, grads=False):
+    """name -> numpy copy of each leaf (of its .grad with `grads`)."""
+    return {n: (t.grad if grads else t).detach().cpu().numpy().copy()
+            for n, t in _named_leaves(tree)}
+
+
+def applied_gradients(store, tree):
+    """Wrap engine.train.average_gradients so that each applied update
+    appends snapshot(tree, grads=True) to `store` after the averaging;
+    returns the function that undoes the wrap."""
+    from blim_tpu_torch.engine import train as train_lib
+
+    real = train_lib.average_gradients
+
+    def spy(leaves):
+        real(leaves)
+        store.append(snapshot(tree, grads=True))
+
+    train_lib.average_gradients = spy
+    return lambda: setattr(train_lib, "average_gradients", real)
+
+
+def leaf_gap(got, want):
+    """(the worst max|got - want| / max|want| over the leaves, its leaf)."""
+    return max((float(np.abs(got[n] - want[n]).max()) / max(float(np.abs(want[n]).max()), 1e-30),
+                n) for n in want)
+
+
+def dp_train_reference(st, parts):
+    """The one-process yardstick of phase 13's data-parallel steps: per
+    step, `parts` accumulated micro-steps over the batch's parts, each with
+    its part's dropout stream, so the applied gradient is the mean of the
+    parts' gradients. Returns, for each of DP_TRAIN_STEPS applied steps,
+    {"grad": that mean gradient, "tree": the trainable tree after the
+    update} (name -> numpy)."""
+    state, step, split, vocab = dp_train_setup(st["flow"], parts, accum=parts)
+    gens = [dropout_generator(i) for i in range(parts)]
+    grads, out = [], []
+    undo = applied_gradients(grads, state.trainable)
+    try:
+        for _ in range(DP_TRAIN_STEPS):
+            for i in range(parts):
+                state, _ = step(state, st["flow"][1], split[i], vocab, gens[i])
+            out.append({"grad": grads[-1], "tree": snapshot(state.trainable)})
+    finally:
+        undo()
+    del state, step
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_environment(rank, world, port, local_rank):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def spawn_ranks(fn, world, backend, tmp, label):
+    """Start `world` processes of fn(rank, world, port, backend, tmp) (spawn),
+    join them within DP_TIMEOUT_S and kill any still alive; a rank that
+    raises or dies fails the script. Returns (each rank's pickled result,
+    seconds from spawn to join)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    t = time.time()
+    ctx = mp.start_processes(fn, args=(world, free_port(), backend, tmp), nprocs=world,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t > DP_TIMEOUT_S:
+                fail(f"{label}: ranks still running after {DP_TIMEOUT_S}s (killed)")
+    except Exception as e:       # a rank raised or died: join terminated the others
+        fail(f"{label}: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.time() - t
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out, wall
+
+
+def step_sizes(m, G, lo, hi):
+    """The batch size of the step that scores each of a bucket's m packs
+    when packs [lo, hi) are run in batch_plan steps of up to G (None
+    outside [lo, hi))."""
+    from blim_tpu_torch.engine.rerank import batch_plan
+
+    out, s = [None] * m, lo
+    for g in batch_plan(hi - lo, G):
+        n = min(g, hi - s)
+        out[s: s + n] = [g] * n
+        s += n
+    return out
+
+
+def record_vtg_steps(store):
+    """Wrap RerankEngine.score_pairs_vtg_packed so that each call records,
+    for each (caption, video) pair this rank scores, its pack size and the
+    batch size of the step that scores its pack, on this rank and in one
+    process: store[(caption, video)] = (size, one-process g, this rank's g).
+    Returns the function that undoes the wrap."""
+    from blim_tpu_torch.engine import rerank
+    from blim_tpu_torch.utils import distributed as dist
+
+    real = rerank.RerankEngine.score_pairs_vtg_packed
+
+    def spy(self, banks, cap_idx, vid_idx):
+        p_len = len(self.vtg_layout.prefix_token_ids())
+        for size, packs in rerank.build_packs(vid_idx, cap_idx, banks["suffix_len_host"],
+                                              self.pack_sizes):
+            m, G = len(packs), rerank.packs_per_step(p_len, size)
+            lo, hi = dist.process_shard_bounds(m, dist.get_world_size(), dist.get_rank())
+            one, mine = step_sizes(m, G, 0, m), step_sizes(m, G, lo, hi)
+            for j in range(lo, hi):
+                for p in packs[j][2]:
+                    store[(int(cap_idx[p]), int(vid_idx[p]))] = (size, one[j], mine[j])
+        return real(self, banks, cap_idx, vid_idx)
+
+    rerank.RerankEngine.score_pairs_vtg_packed = spy
+    return lambda: setattr(rerank.RerankEngine, "score_pairs_vtg_packed", real)
+
+
+def dp_rank(rank, world, port, backend, tmp):
+    """One rank of phase 13a (gloo, every rank on cuda:0 by choice) or 13c
+    (NCCL, one card a rank): phase 3's seeded 7B and inputs and phase 5's
+    LoRA tree; the zero-shot and fine-tuned flows at ITEMS, each held to the
+    one-process matrices the parent saved in tmp/ref.npz (VTG within
+    DP_VTG_TOL on the max and DP_VTG_MEAN_TOL on the mean, TVG within
+    TVG_TOL), each VTG pair's pack and step sizes recorded
+    (record_vtg_steps); then DP_TRAIN_STEPS data-parallel train
+    steps on this rank's part of a B = TRAIN_B batch: the gradient each
+    update applies held to the one-process yardstick's (the mean of the
+    parts' gradients) within GRADCHECK_TOL per leaf, and the tree after the
+    first update too (after later ones it is printed: AdamW moves each
+    element by about lr whatever its gradient's size, so an element whose
+    gradient is at the rounding level, as the q and k LoRA gradients are
+    under near-uniform attention, may move either way). The results go to
+    tmp/rank{rank}.pkl for the parent's checks across ranks."""
+    import pickle
+
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.utils import distributed as dist
+
+    rank_environment(rank, world, port, rank if backend == "nccl" else 0)
+    dist.init_distributed_mode(backend=backend, device="cuda", timeout=DP_GROUP_TIMEOUT_S)
+    ref = np.load(os.path.join(tmp, "ref.npz"))
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.backend(),
+           "device": torch.cuda.current_device()}
+    t = time.time()
+    flow = setup_flow()
+    out["layers"] = flow[0].llm.num_hidden_layers
+    ft = setup_finetuned(flow)
+    torch.cuda.synchronize()
+    out["init_s"] = time.time() - t
+    for name, fine in (("zeroshot", None), ("finetuned", ft)):
+        dist.barrier()                 # the ranks start each timed flow together
+        fa.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        steps = {}
+        undo = record_vtg_steps(steps)
+        try:
+            _, engine, t2v, v2t, secs = run_flow(flow, ITEMS, finetuned=fine)
+        finally:
+            undo()
+        mats = {"t2v": t2v, "v2t": v2t}
+        want = {d: {n: ref[f"{name}/{d}/{n}"] for _, n in VTG_MATRICES + TVG_MATRICES
+                    if f"{name}/{d}/{n}" in ref} for d in ("t2v", "v2t")}
+        vtg, vtg_fill, vtg_mean = matrix_gaps(mats, want, VTG_MATRICES)
+        tvg, tvg_fill, _ = matrix_gaps(mats, want, TVG_MATRICES) if fine else ({}, True, 0.0)
+        out[name] = dict(mats=mats, seconds=secs, counts=fa.counts(),
+                         prefix_forwards=engine.prefix_forwards, shards=engine.pack_shards,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30, vtg=vtg, tvg=tvg,
+                         vtg_mean=vtg_mean, steps=steps)
+        assert vtg_fill and tvg_fill, f"rank {rank} {name}: fill cells differ from one process"
+        assert max(vtg.values()) <= DP_VTG_TOL and vtg_mean <= DP_VTG_MEAN_TOL and max(
+            tvg.values() or [0.0]) <= TVG_TOL, (
+            f"rank {rank} {name}: matrices off the one-process run: {vtg} (mean {vtg_mean}) {tvg}")
+        del engine
+    state, step, split, vocab = dp_train_setup(flow, world)
+    gen = dropout_generator(rank)
+    torch.cuda.reset_peak_memory_stats()
+    out["train"], grads = [], []
+    undo = applied_gradients(grads, state.trainable)
+    for i in range(DP_TRAIN_STEPS):
+        fa.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, flow[1], split[rank], vocab, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        tree = snapshot(state.trainable)
+        want = {k: {n: ref[f"train{world}/{i}/{k}/{n}"] for n in tree} for k in ("grad", "tree")}
+        gap = {"grad": leaf_gap(grads[-1], want["grad"]), "tree": leaf_gap(tree, want["tree"])}
+        out["train"].append(dict(ms=ms, counts=fa.counts(), loss=float(m["loss"]), tree=tree,
+                                 gap=gap))
+        assert gap["grad"][0] <= GRADCHECK_TOL, f"rank {rank} step {i}: gradient off {gap}"
+        assert i > 0 or gap["tree"][0] <= GRADCHECK_TOL, f"rank {rank} step 0: tree off {gap}"
+    undo()
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_control_rank(rank, world, port, backend, tmp):
+    """Phase 13a's control: one gloo rank in a group of one builds phase
+    3's 7B and phase 5's LoRA tree and runs the fine-tuned flow at ITEMS:
+    every pack in its shard, so every step as phase 5 ran it. Its matrices
+    go to tmp/rank0.pkl."""
+    import pickle
+
+    import torch
+
+    from blim_tpu_torch.utils import distributed as dist
+
+    rank_environment(rank, world, port, 0)
+    dist.init_distributed_mode(backend=backend, device="cuda", timeout=DP_GROUP_TIMEOUT_S)
+    flow = setup_flow()
+    _, _, t2v, v2t, secs = run_flow(flow, ITEMS, finetuned=setup_finetuned(flow))
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.backend(),
+               device=torch.cuda.current_device(), mats={"t2v": t2v, "v2t": v2t},
+               seconds=secs)
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_cli_rank(rank, world, port, backend, tmp):
+    """Phase 13b's process: pipelines.main under a torchrun-style
+    environment at world `world` (the backend chosen by main: NCCL on the
+    card), a zero-shot eval and a one-epoch training run on tmp/data; then,
+    with the group destroyed and the environment gone, the same eval again.
+    The results go to tmp/rank{rank}.pkl."""
+    import pickle
+
+    from blim_tpu_torch.engine import loop as loop_lib
+    from blim_tpu_torch.utils import distributed as dist
+
+    rank_environment(rank, world, port, rank)
+    root = os.path.join(tmp, "data")
+    common = ["--dataset", "MSRVTT", "--data_root", root, "--scores_dir",
+              os.path.join(root, "scores"), "--model_path", os.path.join(tmp, "no_checkpoint"),
+              "--topk", str(TOPK), "--cpn"]
+    out = {}
+    runs = (("eval", ["--eval", "--preset", "--output_dir", os.path.join(tmp, "eval")]),
+            ("train", ["--epochs", "1", "--batch_size", "4", "--output_dir",
+                       os.path.join(tmp, "train")]),
+            ("plain", ["--eval", "--preset", "--output_dir", os.path.join(tmp, "plain")]))
+    for name, argv in runs:
+        if name == "plain":
+            dist.destroy_process_group()
+            for k in dist.LAUNCH_ENV:
+                os.environ.pop(k)
+        dist.calls.clear()
+        res, prefix_forwards, times, counts = run_cli(common + argv, "")
+        out[name] = dict(table=loop_lib.results_table(res), calls=dict(dist.calls),
+                         backend=dist.backend(), world=dist.get_world_size(), wall=times["wall"],
+                         epochs=times["epochs"], evals=times["evals"], counts=counts,
+                         prefix_forwards=prefix_forwards)
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def joined(values, spec):
+    return ", ".join(format(v, spec) for v in values)
+
+
+def vtg_gap_by_step(per, want):
+    """The sharded VTG matrices' |rank - one process| (v2t candidate and t2v
+    query likelihoods; the prior pass is not sharded), split by whether the
+    step that scored a cell's pack had the one-process step's batch size
+    (record_vtg_steps): (cells and max |d| where it had, cells and max |d|
+    where it had not, {(pack size, one-process g, rank g): cells above
+    1e-3})."""
+    import collections
+
+    steps = {}
+    for o in per:
+        steps.update(o["steps"])
+    got = per[0]["mats"]
+    same, moved, over = [], [], collections.Counter()
+    for d, n, key in (("v2t", "candidate_likelihood", lambda r, c: (c, r)),
+                      ("t2v", "query_likelihood", lambda r, c: (r, c))):
+        w = want[d][n]
+        for r, c in zip(*np.nonzero(w != -100.0)):
+            size, g_one, g_rank = steps[key(int(r), int(c))]
+            gap = abs(float(got[d][n][r, c]) - float(w[r, c]))
+            (same if g_one == g_rank else moved).append(gap)
+            if gap > 1e-3:
+                over[(size, g_one, g_rank)] += 1
+    return (len(same), max(same, default=0.0), len(moved), max(moved, default=0.0),
+            dict(sorted(over.items())))
+
+
+def check_dp_ranks(label, results, refs, card):
+    """The parent's checks of a group of dp_rank results: the group, each
+    rank's launches (B1 = 28 x its prefix forwards; 112 / 56 / 56 B1-lse /
+    B3 / B4 a train step), the ranks' matrices and trees identical bit for
+    bit, the pack shards disjoint and covering every bucket, their union the
+    one-process pack count. Prints the walls, peaks and q/s."""
+    world = len(results)
+    layers = results[0]["layers"]
+    for r, out in enumerate(results):
+        if (out["rank"], out["world"]) != (r, world):
+            fail(f"{label}: rank {r} reports rank {out['rank']} of {out['world']}")
+    for name in ("zeroshot", "finetuned"):
+        per = [out[name] for out in results]
+        for r, o in enumerate(per):
+            expected = dict({k: 0 for k in o["counts"]}, flash_fwd=layers * o["prefix_forwards"])
+            if o["counts"] != expected:
+                fail(f"{label} {name}: rank {r} launches {o['counts']} != {expected}")
+        for d in ("t2v", "v2t"):
+            for n, m in per[0]["mats"][d].items():
+                if any(not np.array_equal(m, o["mats"][d][n]) for o in per[1:]):
+                    fail(f"{label} {name}: {d} {n} differs across the ranks")
+        shards = [o["shards"] for o in per]
+        if len({len(s) for s in shards}) != 1:
+            fail(f"{label} {name}: the ranks saw different bucket lists")
+        scored = [0] * world
+        for i, entries in enumerate(zip(*shards)):
+            if len({(e[0], e[1], e[4]) for e in entries}) != 1:
+                fail(f"{label} {name}: bucket {i} differs across the ranks: {entries}")
+            edges = [0] + [e[3] for e in entries]
+            if any(e[2] != edges[r] for r, e in enumerate(entries)) or edges[-1] != entries[0][4]:
+                fail(f"{label} {name}: bucket {i}'s shards do not tile its packs: {entries}")
+            for r, e in enumerate(entries):
+                scored[r] += e[3] - e[2]
+        total = sum(e[4] for e in shards[0])
+        if sum(scored) != total or total != refs[name]["packs"]:
+            fail(f"{label} {name}: the ranks scored {scored} packs, the one-process run "
+                 f"{refs[name]['packs']}")
+        secs = [o["seconds"] for o in per]
+        print(f"[dp] {label} {name} at {ITEMS} items: per rank {joined(secs, '.2f')} s = "
+              f"{joined([ITEMS / x for x in secs], '.3f')} q/s, together {ITEMS / max(secs):.3f}"
+              f" q/s (one process, phase {3 if name == 'zeroshot' else 5}: "
+              f"{refs[name]['qps']:.3f}); packs scored {scored} of {total} (disjoint, covering); "
+              f"B1 launches {[o['counts']['flash_fwd'] for o in per]} = 28 x prefix forwards "
+              f"{[o['prefix_forwards'] for o in per]}; peak {joined([o['peak_gib'] for o in per], '.2f')}"
+              f" GiB; max|rank - one process| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in {**per[0]['vtg'], **per[0]['tvg']}.items())
+              + f", VTG mean {per[0]['vtg_mean']:.3e} (tol VTG {DP_VTG_TOL}, mean "
+              f"{DP_VTG_MEAN_TOL}, TVG {TVG_TOL}); the ranks' matrices identical bit for "
+              f"bit [{card}]", flush=True)
+        n_same, same, n_moved, moved, over = vtg_gap_by_step(per, refs[name])
+        print(f"[dp] {label} {name}, max|rank - one process| of the sharded VTG cells by the "
+              f"step that scored their pack: {n_same} cells in steps of the one-process batch "
+              f"size {same:.3e} (tol {DP_SAME_SHAPE_TOL}), {n_moved} in steps of another size "
+              f"{moved:.3e}; cells above 1e-3 by (pack size, one-process step, rank step) "
+              f"{over} [{card}]", flush=True)
+        if same > DP_SAME_SHAPE_TOL:
+            fail(f"{label} {name}: cells whose steps kept their batch size are {same:.3e} off "
+                 f"the one-process run")
+    train_expected = {"flash_fwd": 0, "flash_fwd_lse": 4 * layers, "flash_fwd_dense": 0,
+                      "flash_dq": 2 * layers, "flash_dkv": 2 * layers}
+    for i in range(DP_TRAIN_STEPS):
+        steps = [out["train"][i] for out in results]
+        for r, st in enumerate(steps):
+            if st["counts"] != train_expected:
+                fail(f"{label} train step {i}: rank {r} launches {st['counts']} != "
+                     f"{train_expected}")
+        base = steps[0]["tree"]
+        if any(not np.array_equal(base[n], st["tree"][n]) for st in steps[1:] for n in base):
+            fail(f"{label} train step {i}: the ranks' trainable trees differ")
+        (g, g_leaf), (t, t_leaf) = steps[0]["gap"]["grad"], steps[0]["gap"]["tree"]
+        print(f"[dp] {label} train step {i}: B = {TRAIN_B // world} a rank, "
+              f"{joined([x['ms'] for x in steps], '.1f')} ms, loss "
+              f"{joined([x['loss'] for x in steps], '.4f')}; trees identical across the ranks "
+              f"bit for bit; against the one-process step on the mean of the parts' gradients, "
+              f"worst leaf max|d|/max|yardstick| of the applied gradient {g:.3e} at {g_leaf} (tol "
+              f"{GRADCHECK_TOL}), of the tree {t:.3e} at {t_leaf} "
+              + (f"(tol {GRADCHECK_TOL})" if i == 0 else "(reported: Adam moves every element by "
+                 "~lr whatever its size, so gradient elements at the rounding level can flip)")
+              + f"; launches a rank {steps[0]['counts']} [{card}]", flush=True)
+    print(f"[dp] {label} train peak per rank "
+          f"{joined([o['train_peak_gib'] for o in results], '.2f')} GiB; 7B init per rank "
+          f"{joined([o['init_s'] for o in results], '.1f')} s", flush=True)
+    return [o["finetuned"]["counts"]["flash_fwd"] for o in results], \
+        [o["train"][0]["counts"] for o in results]
+
+
+def dp_group(tmp, name, world, backend, refs, card):
+    """13a (gloo, every rank on cuda:0) or 13c (NCCL, one card a rank): a
+    group of dp_rank processes and the parent's checks of it."""
+    sub = os.path.join(tmp, name)
+    os.makedirs(sub)
+    os.symlink(os.path.join(tmp, "ref.npz"), os.path.join(sub, "ref.npz"))
+    results, wall = spawn_ranks(dp_rank, world, backend, sub, name)
+    placed = [(o["backend"], o["device"]) for o in results]
+    want = [(backend, 0 if backend == "gloo" else r) for r in range(world)]
+    if sorted(placed, key=lambda x: x[1]) != want:
+        fail(f"{name}: ranks on {placed}, expected {want}")
+    print(f"[dp] {name}: {world} {backend} ranks on cuda {sorted({d for _, d in placed})} "
+          f"({wall:.1f}s spawn to join)"
+          + ("; they share one card, so their q/s says nothing about scaling"
+             if backend == "gloo" else ""), flush=True)
+    return check_dp_ranks(name, results, refs, card)
+
+
+def dp_cli(tmp, card):
+    """13b: pipelines.main under torchrun's environment at world 1 (NCCL),
+    held to the same eval without that environment."""
+    sub = os.path.join(tmp, "13b")
+    os.makedirs(sub)
+    write_cli_data(os.path.join(sub, "data"), cli_config())
+    (out,), wall = spawn_ranks(dp_cli_rank, 1, "nccl", sub, "13b")
+    ev, tr, plain = out["eval"], out["train"], out["plain"]
+    print(f"[dp] 13b: pipelines.main with RANK/WORLD_SIZE/LOCAL_RANK/MASTER_ADDR/MASTER_PORT "
+          f"set, world {ev['world']}, backend {ev['backend']} ({wall:.1f}s spawn to join): "
+          f"zero-shot eval wall {ev['wall']:.2f}s, collectives {ev['calls']}; one epoch wall "
+          f"{tr['wall']:.2f}s (epoch {tr['epochs'][0]:.2f}s), collectives {tr['calls']}, "
+          f"launches {tr['counts']}; the same eval without the environment: backend "
+          f"{plain['backend']}, collectives {plain['calls']}, wall {plain['wall']:.2f}s, table "
+          f"{'equal' if plain['table'] == ev['table'] else 'DIFFERENT'} [{card}]", flush=True)
+    if ev["backend"] != "nccl" or tr["backend"] != "nccl" or ev["world"] != 1:
+        fail(f"13b: the CLI's group is {ev['backend']} at world {ev['world']}, not NCCL at 1")
+    if not ev["calls"].get("all_reduce") or not all(
+            tr["calls"].get(k) for k in ("all_reduce", "barrier", "broadcast")):
+        fail(f"13b: collectives did not run: eval {ev['calls']}, train {tr['calls']}")
+    if plain["backend"] is not None or plain["calls"]:
+        fail(f"13b: without the environment a group or collectives remained: {plain}")
+    if plain["table"] != ev["table"]:
+        print(ev["table"], plain["table"], sep="\n", flush=True)
+        fail("13b: the eval's table under the launcher differs from the plain run's")
+
+
+def dp_control(tmp, refs, card):
+    """13a's control: dp_control_rank, a gloo group of one on cuda:0, held
+    to phase 5's matrices within DP_SAME_SHAPE_TOL."""
+    sub = os.path.join(tmp, "13a-control")
+    os.makedirs(sub)
+    (out,), wall = spawn_ranks(dp_control_rank, 1, "gloo", sub, "13a control")
+    gaps, fill, _ = matrix_gaps(out["mats"], refs["finetuned"], VTG_MATRICES + TVG_MATRICES)
+    worst = max(gaps.values())
+    print(f"[dp] 13a control: 1 {out['backend']} rank on cuda {out['device']} ({wall:.1f}s spawn "
+          f"to join), the fine-tuned flow at {ITEMS} items in {out['seconds']:.2f}s; "
+          f"max|rank - one process| " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (tol {DP_SAME_SHAPE_TOL}){'; bit for bit' if worst == 0.0 else ''} [{card}]",
+          flush=True)
+    if (out["world"], out["backend"]) != (1, "gloo") or not fill or worst > DP_SAME_SHAPE_TOL:
+        fail(f"13a control: a world-1 rank differs from the one-process run: {gaps}")
+
+
+def phase_dp(card, refs):
+    """Phase 13: data parallel over processes. 13a, DP_WORLD gloo ranks on
+    the one card, and a control rank in a group of one; 13b, pipelines.main
+    under a torchrun-style environment at world 1 with NCCL; 13c, one NCCL
+    rank a card on min(cards, DP_CARDS) cards when the machine has two or
+    more. The one-process yardsticks go to a temporary ref.npz that every
+    rank reads."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    print(f"[dp] the parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+          f"before spawning; {cards} card(s)", flush=True)
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = {f"{flow}/{d}/{n}": refs[flow][d][n] for flow in ("zeroshot", "finetuned")
+                  for d in ("t2v", "v2t") for n in refs[flow][d]}
+        for world, steps in refs["train"].items():
+            for i, step in enumerate(steps):
+                arrays.update({f"train{world}/{i}/{k}/{n}": a for k in ("grad", "tree")
+                               for n, a in step[k].items()})
+        np.savez(os.path.join(tmp, "ref.npz"), **arrays)
+        del arrays
+        records["13a"] = dp_group(tmp, "13a", DP_WORLD, "gloo", refs, card)
+        dp_control(tmp, refs, card)
+        dp_cli(tmp, card)
+        if cards >= 2:
+            records["13c"] = dp_group(tmp, "13c", min(cards, DP_CARDS), "nccl", refs, card)
+        else:
+            print(f"[dp] 13c (NCCL across cards) not run: this machine has {cards} card, and it "
+                  f"needs two or more", flush=True)
+    print(f"[time] phase 13 (dp) took {time.time() - t_phase:.1f}s", flush=True)
+    return records
 
 
 def vit_attention_bound_ms(clips, s, h, d):
@@ -2282,15 +2997,17 @@ def main():
     record = phase_kernels(card)
     st = phase_slice(card)
     phase_packed(st, card)
-    phase_finetuned(st, card)
+    fine = phase_finetuned(st, card)
+    naive = phase_naive(st, fine, card)
     t0 = time.time()
     train_records = phase_train_kernels(card)
     train = phase_train(st, card)
     phase_gradcheck(st, card)
     print(f"[time] phases 6-8 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
           flush=True)
+    dp_refs = dp_yardsticks(st, fine)
     b1_launches = st["launches"]
-    del st                      # the 7B weights: phases 9-10 measure their own peak memory
+    del st, fine                # the 7B weights: phases 9-10 measure their own peak memory
     torch.cuda.empty_cache()
     t0 = time.time()
     vit_record = phase_vit_kernel(card)
@@ -2299,17 +3016,21 @@ def main():
     torch.cuda.empty_cache()
     phase_cli(card)
     chat_b1, chat_b2 = phase_chat(card)
+    dp = phase_dp(card, dp_refs)
 
     src = "blim_tpu_torch/kernels/csrc/"
     ref = "blim_tpu/kernels/flash_attention.py:"
+    dp_b1, dp_train = dp["13a"]
     kernels = [{"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-                "replaces": ref + "42", "launches": b1_launches, **record, "chat": chat_b1}]
+                "replaces": ref + "42", "launches": b1_launches, **record, "chat": chat_b1,
+                "naive_launches": naive["launches"], "dp_finetuned_launches_per_rank": dp_b1}]
     for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
                                ("flash_dq", "flash_bwd.cu", "195"),
                                ("flash_dkv", "flash_bwd.cu", "252")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": ref + line, "launches": train["counts"][name],
-                        **train_records[name]})
+                        **train_records[name],
+                        "dp_step_launches_per_rank": [c[name] for c in dp_train]})
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
                     "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
                     "chat": chat_b2})
@@ -2318,6 +3039,23 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def dp_yardsticks(st, fine):
+    """Phase 13's one-process yardsticks, from this process: the N = ITEMS
+    matrices of phases 3 and 5 and DP_TRAIN_STEPS train steps accumulated
+    over DP_WORLD parts (and over the cards' parts with two or more cards)."""
+    import torch
+
+    t0 = time.time()
+    cards = torch.cuda.device_count()
+    parts = sorted({DP_WORLD} | ({min(cards, DP_CARDS)} if cards >= 2 else set()))
+    refs = {"zeroshot": st["zeroshot"],
+            "finetuned": {k: fine[k] for k in ("t2v", "v2t", "packs", "qps")},
+            "train": {p: dp_train_reference(st, p) for p in parts}}
+    print(f"[time] phase 13's one-process train yardsticks ({parts} parts) took "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return refs
 
 
 if __name__ == "__main__":

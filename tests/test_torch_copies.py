@@ -1,8 +1,9 @@
 """The port keeps its own copies of the JAX package's JAX-free helpers
 (configs and the HF config reader, tokenizer, prompt layouts, train
 collation and loader, dataset helpers, presets, metric logging, pack
-schedulers, recall and fusion, the results table, every conversation
-template, the chat's frame sampling, the feature-pack reader's C++ source).
+schedulers, the rank-row shard arithmetic, recall and fusion, the results
+table, every conversation template, the chat's frame sampling, the
+feature-pack reader's C++ source).
 Each copy is pinned equal to its original here; the extraction slice's copies (the ViT's position tables and resize
 matrices, the image processor, the frame sampling, chunking and the feature
 store) are pinned in tests/test_torch_vit.py and tests/test_torch_extract.py."""
@@ -14,6 +15,7 @@ import pytest
 
 from blim_tpu.core import config as jconfig
 from blim_tpu.core import constants as jconst
+from blim_tpu.core import mesh as jmesh
 from blim_tpu.data import collate as jcollate
 from blim_tpu.data import conversation as jconv
 from blim_tpu.data import datasets as jdatasets
@@ -33,6 +35,7 @@ from blim_tpu_torch.data.tokenization import ByteFallbackTokenizer as TTokenizer
 from blim_tpu_torch.engine import rerank as trerank
 from blim_tpu_torch.scoring import fusion as tfusion
 from blim_tpu_torch.scoring import recall as trecall
+from blim_tpu_torch.utils import distributed as tdist
 
 CAPTIONS = ["a cat sits on a mat", "children play soccer in the park",
             "a chef cooks pasta", "x", "waves crash against the rocks again and again"]
@@ -158,6 +161,13 @@ def test_batch_plan_copy_matches():
                 if G % n_data:
                     continue
                 assert trerank.batch_plan(m, G, n_data) == jrerank.batch_plan(m, G, n_data)
+
+
+@pytest.mark.parametrize("n,ws", [(1000, 8), (17, 8), (5, 8), (8, 8), (0, 8), (9, 2), (1, 1)])
+def test_process_shard_bounds_copy_matches(n, ws):
+    """tests/test_multihost_seams.py's cases: every rank's rows as JAX's."""
+    for rank in range(ws):
+        assert tdist.process_shard_bounds(n, ws, rank) == jmesh.process_shard_bounds(n, ws, rank)
 
 
 @pytest.mark.parametrize("k", [1, 4, 9])
