@@ -1,8 +1,10 @@
 """Evaluation: top-k rerank in both directions with CPN priors and
-score-matrix assembly (port of blim_tpu/engine/evaluation.py: the
-shared-prefix packed branch, the default, and with shared_prefix=False the
-naive per-pair full-sequence branch; the `packed=False` rectangle schedule
-is not ported).
+score-matrix assembly (port of blim_tpu/engine/evaluation.py). Three
+schedules: the shared-prefix packed one, the default; with packed=False the
+shared-prefix rectangle schedule (fixed (K, W) groups, a prefix forward a
+group: RerankEngine.score_pairs_vtg_shared, score_pairs_tvg_shared and
+compute_vtg_priors); and with shared_prefix=False the naive per-pair
+full-sequence forwards.
 
   v2t candidate likelihood (VTG): P(candidate caption | query video)
   v2t candidate prior      (VTG): P(candidate caption), the CPN prior
@@ -14,8 +16,9 @@ is not ported).
 The TVG directions (`has_tvg`, the fine-tuned flow) need an engine built
 with a TVG layout. Items are (video, caption) rows and the matrices are
 (N x N) over items; cells outside the top-k keep the fill value -100. In a
-process group the packed passes are sharded over the ranks and merged, so
-every rank returns the same matrices.
+process group the shared-prefix passes (packed or rectangle; not the VTG
+prior pass) are sharded over the ranks and merged, so every rank returns
+the same matrices.
 """
 
 from __future__ import annotations
@@ -49,12 +52,14 @@ def evaluation(
     fill: float = -100.0,
     verbose: bool = True,
     shared_prefix: bool = True,
+    packed: bool = True,
     timings: Dict[str, float] | None = None,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """Returns (t2v_dict, v2t_dict) of (N, N) score matrices. shared_prefix
-    =False scores every grid cell with its own full-sequence forward (the
-    naive schedule, RerankEngine.score_grid_*), the comparator the packed
-    passes are held to."""
+    """Returns (t2v_dict, v2t_dict) of (N, N) score matrices. packed=False
+    scores the shared-prefix union in (K, W) rectangles of 2 * topk pairs a
+    group; shared_prefix=False scores every grid cell with its own
+    full-sequence forward (the naive schedule, RerankEngine.score_grid_*),
+    the comparator the packed passes are held to."""
     if has_tvg and engine.tvg_layout is None:
         raise ValueError("has_tvg=True needs an engine built with a tvg_layout "
                          "(RerankEngine(params, config, vtg_layout, tvg_layout, ...))")
@@ -85,8 +90,10 @@ def evaluation(
         return mat
 
     if shared_prefix:
-        prior = engine.compute_vtg_priors_packed(banks) if cpn else None
-        mark("prior_done")
+        prior = None
+        if packed:
+            prior = engine.compute_vtg_priors_packed(banks) if cpn else None
+            mark("prior_done")
         n1 = len(v_rows)
         # cross-grid dedup: v2t_candidate[i, j] and t2v_query[j, i] are the same
         # number P(caption j | video i), and v2t_query[i, j] and
@@ -97,12 +104,24 @@ def evaluation(
         if verbose:
             print(f"VTG union: {len(u_cap)} unique pairs of {len(all_caps)} grid cells "
                   f"(topk={topk})")
+        # union groups hold ~2 * topk pairs a video (its own v2t row and ~topk
+        # queries' t2v lists), so the rectangle's groups take 2 * topk
         if has_tvg:
-            tscores, tpriors = engine.score_pairs_tvg_packed(tvg_banks, video_vocab, u_cap,
-                                                             u_vid, with_prior=cpn)
+            if packed:
+                tscores, tpriors = engine.score_pairs_tvg_packed(tvg_banks, video_vocab, u_cap,
+                                                                 u_vid, with_prior=cpn)
+            else:
+                tscores, tpriors = engine.score_pairs_tvg_shared(tvg_banks, video_vocab, u_cap,
+                                                                 u_vid, 2 * topk, with_prior=cpn)
             mark("tvg_done")
-        scores = engine.score_pairs_vtg_packed(banks, u_cap, u_vid)
+        if packed:
+            scores = engine.score_pairs_vtg_packed(banks, u_cap, u_vid)
+        else:
+            scores = engine.score_pairs_vtg_shared(banks, u_cap, u_vid, 2 * topk)
         mark("vtg_done")
+        if cpn and not packed:
+            prior = engine.compute_vtg_priors(banks)
+            mark("prior_done")
         v2t_dict["candidate_likelihood"] = scatter(v_rows, v_cols, scores[inv[:n1]])
         t2v_dict["query_likelihood"] = scatter(t_rows, t_cols, scores[inv[n1:]])
         if cpn:

@@ -81,18 +81,20 @@ def multi_head_attention(
     dim 64 the backward kernels do not exist yet, so such a tensor that
     needs a gradient raises. Any other CUDA tensor goes to the inference
     kernel B1, whatever its size (the JAX wrapper's small-problem gate does
-    not apply), which raises on a head dim other than 128. The kernels have
-    no sliding window (dormant in BLiM configs), so `window` on a CUDA
-    tensor raises; on a CPU tensor it runs the plain version under
-    autograd."""
+    not apply), which raises on a head dim other than 128.
+
+    A sliding `window` (dormant in BLiM configs) runs the plain windowed
+    attention as torch ops on any device, under autograd when the tensors
+    need a gradient: the JAX wrapper likewise takes its XLA path whenever a
+    window is set, since the flash kernel has none."""
     from blim_tpu_torch.kernels import flash_attention as fa
 
+    if window is not None:
+        return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
     needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                               or v.requires_grad)
-    if q.device.type == "cpu" and (window is not None or not needs_grad):
-        return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
-    if window is not None:
-        raise NotImplementedError("sliding-window attention has no CUDA kernel yet")
+    if q.device.type == "cpu" and not needs_grad:
+        return reference_attention(q, k, v, key_mask, query_mask, causal, scale)
     dense64 = q.shape[-1] == fa.DENSE_HEAD_DIM
     if needs_grad:
         if dense64 and q.device.type != "cpu":

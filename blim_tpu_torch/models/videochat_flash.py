@@ -19,7 +19,13 @@ the caption suffixes run per pair. The CPN prior masks the video out of
 attention, so its text-only prefix runs once per dataset. In the TVG
 direction the caption is the prefix: caption prefixes are packed back to
 back into rows (`tvg_pack_prefix_kv`) and each (caption, video) pair is a
-clips-wide query against its caption's segment (`score_tvg_packed`).
+clips-wide query against its caption's segment (`score_tvg_packed`). The
+rectangle schedule scores K suffixes of one width per prefix instead
+(`score_vtg_suffix`; `tvg_prefix_kv`, one left-padded caption prefix a
+row, and `score_tvg_shared`).
+
+PyramidDrop (`vtg_hidden_pdrop`, models/pyramid_drop.py) drops video
+tokens inside the decoder when the config turns it on.
 
 Interactive use: `chat` (a video file -> featurizer -> prompt -> `generate`
 -> text and history) and `generate` (splice at the prompt's image slot,
@@ -196,6 +202,60 @@ def score_vtg_packed(params: Params, config: ModelConfig,
     return -(total / count.clamp(min=1.0))
 
 
+def score_vtg_suffix(params: Params, config: ModelConfig,
+                     prefix_kv,                    # k/v: (L, G, P, Hkv, hd)
+                     suffix_ids: torch.Tensor,     # (G, K, W)
+                     suffix_mask: torch.Tensor,    # (G, K, W)
+                     suffix_labels: torch.Tensor,  # (G, K, W-1): label of hidden i is token i+1
+                     position_offset: int, *,
+                     prefix_mask: Optional[torch.Tensor] = None,
+                     lora: Optional[Params] = None,
+                     lora_scale: float = 0.0) -> torch.Tensor:
+    """Likelihood of each of K caption suffixes given its group's prefix ->
+    (G, K): the rectangle counterpart of `score_vtg_packed`, every suffix
+    padded to the group's width W."""
+    llm_lora, _ = _lora_parts(lora)
+    emb = qwen2.embed_tokens(params["llm"], suffix_ids)
+    hidden = qwen2.forward_suffix_with_prefix(params["llm"], config.llm, emb, prefix_kv,
+                                              suffix_mask, position_offset,
+                                              prefix_mask=prefix_mask, lora=llm_lora,
+                                              lora_scale=lora_scale)
+    kernel, la, lb = _lm_head_parts(params, lora)
+    return criteria.vtg_likelihood_from_hidden(hidden[:, :, :-1], kernel, suffix_labels,
+                                               la, lb, lora_scale)
+
+
+def pdrop_total_dropped(config: ModelConfig) -> int:
+    """Video tokens PyramidDrop removes by the last layer: the caption region
+    and gather positions shift by this much when mm_llm_compress is on."""
+    if not config.mm_llm_compress or not config.llm_compress_layer_list:
+        return 0
+    final_ratio = config.llm_image_token_ratio_list[len(config.llm_compress_layer_list)]
+    return config.video_tokens_vtg - int(config.video_tokens_vtg * final_ratio)
+
+
+def vtg_hidden_pdrop(params: Params, config: ModelConfig, input_ids: torch.Tensor,
+                     mask: torch.Tensor, video: torch.Tensor, video_start: int,
+                     query_pos: int,              # the last instruction token (prompt end)
+                     *, lora: Optional[Params] = None, lora_scale: float = 0.0,
+                     generator: Optional[torch.Generator] = None, lora_dropout: float = 0.0,
+                     remat: bool = False):
+    """VTG forward with PyramidDrop's in-LLM video-token pruning (on when
+    config.mm_llm_compress is). Returns (post-norm hidden (B, T -
+    pdrop_total_dropped(config), D), the kept tokens' indices (B, T') into
+    the original sequence). Right-padded layouts only."""
+    from blim_tpu_torch.models.pyramid_drop import pdrop_forward_hidden
+
+    emb = _embed_with_video(params, input_ids, video, video_start, lora, lora_scale,
+                            generator=generator, lora_dropout=lora_dropout)
+    llm_lora, _ = _lora_parts(lora)
+    return pdrop_forward_hidden(
+        params["llm"], config.llm, emb, mask, video_start, config.video_tokens_vtg, query_pos,
+        config.llm_compress_layer_list, config.llm_image_token_ratio_list,
+        compress_type=config.llm_compress_type, lora=llm_lora, lora_scale=lora_scale,
+        remat=remat)
+
+
 def score_tvg(params: Params, config: ModelConfig, batch: Dict[str, torch.Tensor],
               video_vocab: torch.Tensor,      # (V, clips, mm)
               video_start: int, gather_start: int, *, cpn: bool = False,
@@ -211,6 +271,66 @@ def score_tvg(params: Params, config: ModelConfig, batch: Dict[str, torch.Tensor
     clip_hidden = hidden[:, gather_start: gather_start + config.num_clips]
     logits = criteria.tvg_clip_logits(clip_hidden, params["visual_head"]["kernel"], video_vocab)
     return criteria.tvg_likelihood(logits, batch["video_label"])
+
+
+def tvg_prefix_kv(params: Params, config: ModelConfig,
+                  prefix_ids: torch.Tensor,    # (G, P) left-padded prompt through "assistant\n"[:-1]
+                  prefix_mask: torch.Tensor,   # (G, P) the attention mask or the CPN prior mask
+                  position_ids: Optional[torch.Tensor] = None,   # absolute positions of a
+                  *, lora: Optional[Params] = None,              # row trimmed from the left
+                  lora_scale: float = 0.0):
+    """Per-caption TVG prefix K/V (L, G, P, Hkv, hd), one row a caption
+    (B1 on CUDA). With the CPN prefix mask only the instruction head stays
+    visible, for the prior P(video)."""
+    llm_lora, _ = _lora_parts(lora)
+    emb = qwen2.embed_tokens(params["llm"], prefix_ids)
+    _, kv = qwen2.forward_collect_kv(params["llm"], config.llm, emb, prefix_mask, position_ids,
+                                     lora=llm_lora, lora_scale=lora_scale)
+    return kv
+
+
+def score_tvg_shared(params: Params, config: ModelConfig,
+                     prefix_kv,                     # k/v: (L, G, P, Hkv, hd)
+                     prefix_mask: torch.Tensor,     # (G, P)
+                     first_ids: torch.Tensor,       # (G,) last text token (suffix position 0)
+                     video: torch.Tensor,           # (G, K, clips, D) TVG embeddings, or
+                                                    # (G, K, clips, tokens_per_clip, mm) features
+                     video_label: torch.Tensor,     # (G, K) vocabulary index of each pair's video
+                     video_vocab: torch.Tensor,     # (V, clips, mm)
+                     terminator_ids,                # tuple of terminator token ids
+                     position_offset: int,          # global position of suffix token 0
+                     *, cpn: bool = False, lora: Optional[Params] = None,
+                     lora_scale: float = 0.0) -> torch.Tensor:
+    """Shared-prefix TVG likelihood, or with cpn the prior -> (G, K): K
+    candidate videos against each caption's prefix. Suffix = [last text
+    token | clip tokens | terminators]; hidden positions 0..clips-1 predict
+    clips 0..clips-1. With cpn the last text token (suffix position 0) is
+    masked: it lies beyond the instruction head."""
+    llm_lora, proj_lora = _lora_parts(lora)
+    g, k = video.shape[:2]
+    clips = config.num_clips
+    emb_dtype = params["llm"]["embed_tokens"]["embedding"].dtype
+    first = qwen2.embed_tokens(params["llm"], first_ids)[:, None, None, :]
+    first = first.expand(g, k, 1, first.shape[-1])
+    if video.ndim == 4:
+        vid = video.to(emb_dtype)
+    else:
+        vid = projector_lib.project_tvg(params["projector"], video, lora=proj_lora,
+                                        lora_scale=lora_scale).to(emb_dtype)
+    term_ids = torch.as_tensor(list(terminator_ids), dtype=torch.int64, device=first_ids.device)
+    term = qwen2.embed_tokens(params["llm"], term_ids)
+    term = term[None, None].expand(g, k, len(terminator_ids), term.shape[-1])
+    suffix = torch.cat([first.to(emb_dtype), vid, term.to(emb_dtype)], dim=2)
+    suffix_mask = torch.ones(suffix.shape[:3], dtype=torch.int32, device=suffix.device)
+    if cpn:
+        suffix_mask[:, :, 0] = 0
+    hidden = qwen2.forward_suffix_with_prefix(params["llm"], config.llm, suffix, prefix_kv,
+                                              suffix_mask, position_offset,
+                                              prefix_mask=prefix_mask, lora=llm_lora,
+                                              lora_scale=lora_scale)
+    clip_hidden = hidden[:, :, :clips].reshape(g * k, clips, -1)
+    logits = criteria.tvg_clip_logits(clip_hidden, params["visual_head"]["kernel"], video_vocab)
+    return criteria.tvg_likelihood(logits, video_label.reshape(-1)).reshape(g, k)
 
 
 def tvg_pack_prefix_kv(params: Params, config: ModelConfig,

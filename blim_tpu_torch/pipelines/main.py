@@ -28,8 +28,10 @@ averaged over the ranks, and scores its shard of the rerank packs; only
 rank 0 prints and writes logs and checkpoints:
     torchrun --nproc_per_node 8 -m blim_tpu_torch.pipelines.main ...
 
-Left out: --mesh_model (tensor parallelism over a TPU mesh) and
---profile_dir (profiler traces).
+--profile_dir DIR traces the evaluation with torch.profiler into
+DIR/trace.json (a Chrome trace; trace_rank<r>.json a rank in a group of
+several), as the JAX CLI traces it with jax.profiler. Left out:
+--mesh_model (tensor parallelism over a TPU mesh).
 """
 
 from __future__ import annotations
@@ -85,6 +87,8 @@ def get_args_parser():
     parser.add_argument("--preset", action="store_true",
                         help="apply the dataset's published hyperparameters")
     parser.add_argument("--tiny", action="store_true", help="tiny random model (smoke tests)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="torch.profiler trace of the evaluation, DIR/trace.json")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a GPU) or 'cpu' (plain versions)")
     return parser
@@ -104,6 +108,7 @@ def main(args):
     from blim_tpu_torch.engine import train as train_lib
     from blim_tpu_torch.engine.rerank import RerankEngine
     from blim_tpu_torch.utils import distributed as dist
+    from blim_tpu_torch.utils.profiling import trace
 
     dev = dist.device_for_rank(args.device)
     if getattr(args, "preset", False):
@@ -203,7 +208,11 @@ def main(args):
 
     start_time = time.time()
     if args.eval:
-        results = run_eval()
+        # one file a rank in a group of several
+        trace_name = (f"trace_rank{dist.get_rank()}.json" if dist.get_world_size() > 1
+                      else "trace.json")
+        with trace(args.profile_dir, trace_name):
+            results = run_eval()
         table = loop_lib.results_table(results)
         if args.output_dir and dist.is_main_process():
             with open(os.path.join(args.output_dir, "log.txt"), "a", encoding="utf-8") as f:

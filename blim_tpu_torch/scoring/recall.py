@@ -1,4 +1,5 @@
-"""Retrieval recall metrics (copy of `get_recall` from blim_tpu/scoring/recall.py).
+"""Retrieval recall metrics (copy of blim_tpu/scoring/recall.py: `get_recall`,
+and `compute_metrics`, which delegates to the copy of alt_metrics).
 
 R@1/5/10, per-direction means and the overall r_mean, with multi-ground-
 truth support and the zero sentinel: a fully computed score matrix never
@@ -56,3 +57,12 @@ def get_recall(
         "r_mean": (v2t_mean + t2v_mean) / 2,
     }
     return {k: round(v, 2) for k, v in result.items()}
+
+
+def compute_metrics(sim_matrix: np.ndarray) -> Dict[str, float]:
+    """Single-direction diagonal-rank metrics: delegates to
+    `scoring.alt_metrics.compute_metrics` (R1..R1000 over the tie-expanded
+    rank list, MR/MedianR/MeanR, cols), as the JAX package's does."""
+    from blim_tpu_torch.scoring.alt_metrics import compute_metrics as _full
+
+    return _full(sim_matrix)

@@ -43,6 +43,21 @@ Phases, one line each (all numbers beside the card's name and power limit):
               the two VTG limits; then phase 13's one-process
               yardsticks are kept (phases 3 and 5's matrices; after phase 8,
               DP_TRAIN_STEPS train steps accumulated over the batch's parts);
+  5c. rectangle  the rectangle schedule (evaluation(packed=False): groups of
+              2 x TOPK suffixes, remainders in k-buckets 16/8/4, one B1 prefix
+              forward a group, the TVG caption prefixes left-padded and
+              trimmed to 96/128/192/249 at their absolute positions, a second
+              TVG prefix pass under the CPN mask) at ITEMS on phase 5's
+              weights and LoRA tree, held to phase 5's packed matrices (VTG
+              within GRID_VTG_TOL / GRID_VTG_MEAN_TOL, TVG within TVG_TOL, the
+              same fill cells); B1 launches = 28 x its prefix forwards, each
+              TVG prefix forward 28 of them; wall, q/s, steps, peak and the
+              split by pass beside phase 5's; at NAIVE_ITEMS, a planted VTG
+              position fault and a TVG prefix position fault (positions
+              restarting at 0) must each exceed a limit; B1 at the two most
+              common TVG rectangle shapes under their left-padded and CPN
+              masks against its plain version, timed like phase 2 (the most
+              common one is the record);
   6. train-kernels  B1-lse, B3 (flash_dq) and B4 (flash_dkv) against their
               plain versions at the train step's VTG and TVG shapes, timed
               like phase 2 (library yardstick: SDPA forward, and SDPA's
@@ -126,7 +141,16 @@ Phases, one line each (all numbers beside the card's name and power limit):
               the collectives counted, a zero-shot eval whose table equals
               the same eval without the environment, and a one-epoch run;
               13c, with two or more cards, 13a with one NCCL rank a card.
-Then one JSON line of kernel records, the nvidia-smi line, and as the last
+ 14. dormant  (run after phase 8, on phase 3's 7B) PyramidDrop on PDROP_ROWS VTG rows,
+              held on their caption scores within PACKED_TOL:
+              keep-all against vtg_hidden, one uniform stage (PDROP_LAYER,
+              PDROP_RATIO) through B1 against its plain-attention run
+              (equal kept tokens; positions left un-renumbered after the drop,
+              planted, must exceed it), one attention-ranked stage, 28
+              B1 launches each; the sliding window (WINDOW) on the card,
+              forward and backward, against the CPU plain version; and, in
+              phase 11's fine-tuned eval, --profile_dir's trace.
+Then the whole script's time, one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
 it fails at once.
@@ -249,6 +273,18 @@ DP_SAME_SHAPE_TOL = 1e-5  # max |rank - one process| where the step that scored 
                      # had the one-process step's batch size (the world-1 control, and the
                      # cells of the sharded ranks whose step kept its size): 0 on an H100
 DP_GROUP_TIMEOUT_S = 180  # the process group's timeout: one collective's longest wait
+PDROP_LAYER = 8      # phase 14's PyramidDrop stage: layer 8 ranks (the first rank layer
+PDROP_RATIO = 0.5    # of the 8/16/24 schedule the config reader test uses) and half the
+                     # video stays; BLiM's configs set no stage
+PDROP_ROWS = 8       # VTG rows of phase 14's PyramidDrop checks; they are held on their
+                     # caption scores (the label window, shifted left by the dropped
+                     # tokens) within PACKED_TOL, not on the final hidden: that differs by
+                     # ~4% (Frobenius) between two attention versions through 28 seeded
+                     # random bf16 layers with or without a drop (4.1e-2 / 3.9e-2 on an
+                     # H100), which a planted position fault (7.6e-2) barely exceeds. On an
+                     # H100 the scores read 1.8e-2 through B1 vs plain with the drop (1.4e-2
+                     # without), the planted fault 0.11
+WINDOW = 128         # phase 14's sliding window (dormant in BLiM configs)
 IMAGE_SIDE = 896     # the image path's seeded image: 896 x 896 takes the 2 x 2 grid of
 IMAGE_GRID = "(1x1),...,(2x2)"  # these pinpoints, 4 tiles + the base view at 448
 
@@ -711,12 +747,12 @@ def setup_finetuned(flow):
                 tvg_layout=make_tvg_layout(tok, cfg.num_clips, CAPTION_TOKENS))
 
 
-def run_flow(flow, n, timings=None, finetuned=None, shared_prefix=True):
+def run_flow(flow, n, timings=None, finetuned=None, shared_prefix=True, packed=True):
     """One evaluation (CPN on, TOPK) of n synthetic items on a fresh engine,
     synchronized: the zero-shot flow, or with `finetuned` (setup_finetuned)
     the fine-tuned flow, TVG directions and LoRA on; shared_prefix=False
-    runs the naive per-pair schedule. Returns (inputs, engine, t2v, v2t,
-    seconds)."""
+    runs the naive per-pair schedule, packed=False the rectangle schedule.
+    Returns (inputs, engine, t2v, v2t, seconds)."""
     import torch
 
     from blim_tpu_torch.engine.evaluation import evaluation
@@ -731,7 +767,7 @@ def run_flow(flow, n, timings=None, finetuned=None, shared_prefix=True):
     t = time.time()
     t2v, v2t = evaluation(engine, inputs, tok, "MSRVTT", topk=TOPK, cpn=True,
                           has_tvg=finetuned is not None, verbose=False, timings=timings,
-                          shared_prefix=shared_prefix)
+                          shared_prefix=shared_prefix, packed=packed)
     torch.cuda.synchronize()
     return inputs, engine, t2v, v2t, time.time() - t
 
@@ -909,11 +945,13 @@ def phase_finetuned(st, card):
           f"{WARM_ITEMS} items in {warm_s:.2f}s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
-    inputs, engine, t2v, v2t, elapsed = run_flow(flow, ITEMS, finetuned=ft)
+    timings = {}
+    inputs, engine, t2v, v2t, elapsed = run_flow(flow, ITEMS, finetuned=ft, timings=timings)
     launches = fa.launches
     others = sum(fa.counts().values()) - launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     packs = pack_count(engine)      # before tvg_controls scores more packs on this engine
+    steps = engine.steps
     n = ITEMS
     layers = cfg.llm.num_hidden_layers
     expected = layers * engine.prefix_forwards
@@ -921,8 +959,8 @@ def phase_finetuned(st, card):
           f"peak {peak_gb:.2f} GiB, {engine.steps} steps, VTG prefix forwards "
           f"{engine.prefix_forwards} ({engine.prefix_forwards - 1} video-prefix steps + 1 prior "
           f"prefix), TVG packed-prefix forwards {engine.tvg_prefix_forwards}, flash_fwd "
-          f"launches {launches} (expected {expected} = {layers} x {engine.prefix_forwards}) "
-          f"[{card}]", flush=True)
+          f"launches {launches} (expected {expected} = {layers} x {engine.prefix_forwards}); "
+          f"split {pass_split(timings)} [{card}]", flush=True)
     if launches != expected or launches == 0 or others:
         fail(f"fine-tuned flow: flash_fwd launches {launches} != expected {expected}, or "
              f"another kernel launched ({fa.counts()})")
@@ -992,7 +1030,21 @@ def phase_finetuned(st, card):
             fail(f"a planted {fault} fault moved the TVG scores by {controls[fault]}, not "
                  f"above {TVG_TOL}: the packed-vs-naive check cannot see it")
     print(f"[time] phase 5 (finetuned) took {time.time() - t0:.1f}s", flush=True)
-    return dict(launches=launches, qps=n / elapsed, ft=ft, t2v=t2v, v2t=v2t, packs=packs)
+    return dict(launches=launches, qps=n / elapsed, ft=ft, t2v=t2v, v2t=v2t, packs=packs,
+                seconds=elapsed, peak_gb=peak_gb, steps=steps, timings=timings)
+
+
+def pass_split(timings):
+    """The evaluation's wall split by pass, from its timing marks: banks
+    (upload of both banks), then the passes in the order they ran."""
+    marks = sorted(timings.items(), key=lambda kv: kv[1])
+    out, prev = [], 0.0
+    for name, t in marks:
+        if name == "total":
+            continue
+        out.append(f"{name.replace('_done', '')} {t - prev:.2f}s")
+        prev = t
+    return ", ".join(out)
 
 
 def pack_count(engine):
@@ -1119,6 +1171,369 @@ def phase_naive(st, fine, card):
                  f"within {GRID_VTG_TOL} / {GRID_VTG_MEAN_TOL}: the check cannot see it")
     print(f"[time] phase 5b (naive) took {time.time() - t0:.1f}s", flush=True)
     return dict(launches=counts["flash_fwd"], forwards=engine.naive_forwards, seconds=naive_s)
+
+
+def rect_controls(flow, ft):
+    """Phase 5c's planted faults, at NAIVE_ITEMS: the rectangle evaluation
+    clean and with one fault planted at a time against the packed
+    evaluation of the same inputs -> {name: (VTG max |d|, VTG mean |d|, TVG
+    max |d|)}. Faults: 'vtg_position', the rectangle's VTG suffixes (and
+    priors) scored one position late; 'tvg_position', the trimmed TVG
+    prefixes at positions restarting at 0 instead of P_full - B."""
+    from blim_tpu_torch.models import videochat_flash as vcf
+
+    _, _, pt2v, pv2t, _ = run_flow(flow, NAIVE_ITEMS, finetuned=ft)
+    packed = {"t2v": pt2v, "v2t": pv2t}
+    score_vtg_suffix, tvg_prefix_kv = vcf.score_vtg_suffix, vcf.tvg_prefix_kv
+
+    def late_suffix(params, config, kv, ids, mask, labels, position_offset, **kw):
+        return score_vtg_suffix(params, config, kv, ids, mask, labels, position_offset + 1, **kw)
+
+    def restarted(params, config, ids, mask, position_ids=None, **kw):
+        return tvg_prefix_kv(params, config, ids, mask,
+                             position_ids=position_ids - position_ids[:, :1], **kw)
+
+    out = {}
+    for name, (attr, fn) in {"clean": (None, None),
+                             "vtg_position": ("score_vtg_suffix", late_suffix),
+                             "tvg_position": ("tvg_prefix_kv", restarted)}.items():
+        if attr:
+            setattr(vcf, attr, fn)
+        try:
+            _, _, t2v, v2t, _ = run_flow(flow, NAIVE_ITEMS, finetuned=ft, packed=False)
+        finally:
+            vcf.score_vtg_suffix, vcf.tvg_prefix_kv = score_vtg_suffix, tvg_prefix_kv
+        got = {"t2v": t2v, "v2t": v2t}
+        vtg, _, vtg_mean = matrix_gaps(got, packed, VTG_MATRICES)
+        tvg, _, _ = matrix_gaps(got, packed, TVG_MATRICES)
+        out[name] = (max(vtg.values()), vtg_mean, max(tvg.values()))
+    return out
+
+
+def phase_rectangle(st, fine, card):
+    """Phase 5c: the rectangle schedule (evaluation(packed=False), the
+    fine-tuned flow with CPN on) at ITEMS on phase 5's weights and LoRA tree,
+    held to phase 5's packed matrices of the same inputs (VTG within
+    GRID_VTG_TOL max and GRID_VTG_MEAN_TOL mean, TVG within TVG_TOL, the
+    same fill cells); B1 launches = 28 x the prefix forwards, the TVG
+    prefixes among them (each one through B1: 28 launches); then
+    rect_controls' faults, each of which must exceed a limit; then B1 at the
+    two most common TVG rectangle shapes against its plain version."""
+    import collections
+
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.models import videochat_flash as vcf
+
+    t0 = time.time()
+    flow, ft = st["flow"], fine["ft"]
+    layers = flow[0].llm.num_hidden_layers
+    tvg_calls, tvg_masks = [], {}
+    real_kv = vcf.tvg_prefix_kv
+
+    def counted(params, config, ids, mask, position_ids=None, **kw):
+        before = fa.launches
+        kv = real_kv(params, config, ids, mask, position_ids=position_ids, **kw)
+        shape = tuple(ids.shape)
+        tvg_calls.append((shape, fa.launches - before))
+        if len(tvg_masks.setdefault(shape, [])) < 2:   # a step's likelihood, then prior mask
+            tvg_masks[shape].append(mask.clone())
+        return kv
+
+    vcf.tvg_prefix_kv = counted
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    timings = {}
+    try:
+        inputs, engine, t2v, v2t, elapsed = run_flow(flow, ITEMS, finetuned=ft, timings=timings,
+                                                     packed=False)
+    finally:
+        vcf.tvg_prefix_kv = real_kv
+    counts = fa.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = dict({k: 0 for k in counts}, flash_fwd=layers * engine.prefix_forwards)
+    tvg_forwards = len(tvg_calls)
+    tvg_launches = sum(n for _, n in tvg_calls)
+    shapes = collections.Counter(shape for shape, _ in tvg_calls)
+    rect = {"t2v": t2v, "v2t": v2t}
+    packed = {"t2v": fine["t2v"], "v2t": fine["v2t"]}
+    vtg, vtg_fill, vtg_mean = matrix_gaps(rect, packed, VTG_MATRICES)
+    tvg, tvg_fill, _ = matrix_gaps(rect, packed, TVG_MATRICES)
+    groups = {(n, k): m for n, k, _lo, _hi, m in engine.pack_shards}
+    print(f"[rectangle] fine-tuned flow, evaluation(packed=False), {ITEMS} queries topk {TOPK} "
+          f"(one run, no warm run: eager PyTorch compiles nothing a shape): wall {elapsed:.3f}s "
+          f"= {ITEMS / elapsed:.3f} q/s (phase 5 packed: {fine['seconds']:.3f}s = "
+          f"{fine['qps']:.3f} q/s); {engine.steps} steps (packed {fine['steps']}); peak "
+          f"{peak_gb:.2f} GiB (packed {fine['peak_gb']:.2f}); split {pass_split(timings)} "
+          f"(packed: {pass_split(fine['timings'])}); groups by (pass, k) "
+          f"{groups}; prefix forwards {engine.prefix_forwards} (TVG "
+          f"{tvg_forwards}, each {tvg_launches // max(tvg_forwards, 1)} B1 launches), launches "
+          f"{counts} (expected {expected}); TVG prefix shapes (G, B) "
+          f"{dict(shapes.most_common())} [{card}]", flush=True)
+    print(f"[rectangle] max|rectangle - packed| VTG " + ", ".join(
+        f"{k} {v:.3e}" for k, v in vtg.items()) + f" (tol {GRID_VTG_TOL}), mean {vtg_mean:.3e} "
+          f"(tol {GRID_VTG_MEAN_TOL}); TVG " + ", ".join(f"{k} {v:.3e}" for k, v in tvg.items())
+          + f" (tol {TVG_TOL}); fill cells {'the same' if vtg_fill and tvg_fill else 'DIFFERENT'}"
+          f" [{card}]", flush=True)
+    if counts != expected or not engine.prefix_forwards:
+        fail(f"rectangle: launches {counts} != expected {expected}")
+    if not tvg_forwards or tvg_launches != layers * tvg_forwards:
+        fail(f"rectangle: {tvg_forwards} TVG prefix forwards made {tvg_launches} B1 launches, "
+             f"not {layers} each")
+    if not (vtg_fill and tvg_fill):
+        fail("rectangle: the fill cells differ from the packed evaluation's")
+    if not all(np.isfinite(m[k]).all() for m in (t2v, v2t) for k in m):
+        fail("rectangle: a non-finite score")
+    for d in ("t2v", "v2t"):
+        if not np.array_equal(rect[d]["internvideo2"], packed[d]["internvideo2"]):
+            fail(f"rectangle: {d} internvideo2 differs from phase 5's")
+    if max(vtg.values()) > GRID_VTG_TOL or vtg_mean > GRID_VTG_MEAN_TOL \
+            or max(tvg.values()) > TVG_TOL:
+        fail("rectangle: disagrees with the packed evaluation")
+    controls = rect_controls(flow, ft)
+    print(f"[rectangle] at {NAIVE_ITEMS} items against the packed evaluation, max / mean |d| "
+          f"VTG and max |d| TVG: " + ", ".join(f"{k} {a:.3e} / {b:.3e}, {c:.3e}"
+                                                for k, (a, b, c) in controls.items())
+          + f" (tol {GRID_VTG_TOL} / {GRID_VTG_MEAN_TOL}, {TVG_TOL}) [{card}]", flush=True)
+    a, b, c = controls["clean"]
+    if a > GRID_VTG_TOL or b > GRID_VTG_MEAN_TOL or c > TVG_TOL:
+        fail(f"rectangle at {NAIVE_ITEMS} items disagrees with the packed evaluation")
+    a, b, _ = controls["vtg_position"]
+    if a <= GRID_VTG_TOL and b <= GRID_VTG_MEAN_TOL:
+        fail(f"a planted VTG position fault moved the grid by {a:.3e} / {b:.3e}: not seen")
+    if controls["tvg_position"][2] <= TVG_TOL:
+        fail(f"a planted TVG prefix position fault moved the TVG scores by "
+             f"{controls['tvg_position'][2]:.3e}, not above {TVG_TOL}: not seen")
+    # the record is the most common shape's; the next one is checked too
+    b1 = [rect_kernel_b1(shape, tvg_masks[shape], card) for shape, _ in shapes.most_common(2)][0]
+    print(f"[time] phase 5c (rectangle) took {time.time() - t0:.1f}s", flush=True)
+    return dict(launches=counts["flash_fwd"], prefix_forwards=engine.prefix_forwards,
+                tvg_forwards=tvg_forwards, seconds=elapsed, b1=b1)
+
+
+def rect_kernel_b1(shape, masks, card):
+    """B1 against its plain version at a TVG rectangle prefix shape (G, B),
+    under the masks a step of phase 5c gave it there: the left-padded
+    attention mask (leading rows fully masked) and the CPN mask (only the
+    instruction head visible). Timed like phase 2 under the first."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+
+    g, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hq, hkv, d = 28, 4, 128
+    q = torch.randn((g, s, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((g, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((g, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    errs = []
+    for mask in masks:
+        before = fa.counts()
+        out = fa.flash_attention(q, k, v, key_mask=mask, query_mask=mask)
+        torch.cuda.synchronize()
+        if fa.counts() != dict(before, flash_fwd=before["flash_fwd"] + 1):
+            fail("rectangle B1: the wrapper did not launch the kernel once")
+        ref = reference_attention(q, k, v, mask, mask, True, d ** -0.5)
+        if not torch.isfinite(out).all():
+            fail("rectangle B1: non-finite output")
+        if (out[mask == 0] != 0).any():
+            fail("rectangle B1: a masked row is not zero")
+        diff = (out.float() - ref.float()).abs()
+        errs.append(diff.max().item())
+        if (diff - ATTN_RTOL * ref.float().abs()).max().item() > ATTN_ATOL:
+            fail(f"rectangle B1: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| "
+                 f"({errs[-1]:.3e})")
+    mask = masks[0]
+    ms = graph_time_ms(raw_fwd(q, k, v, mask))
+    plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, mask, mask, True, d ** -0.5))
+    idx = torch.arange(s, device="cuda")
+    allowed = (idx[:, None] >= idx[None, :])[None, None] & mask.bool()[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                                  enable_gqa=True))
+    bound_ms, bound_by = attention_bound_ms(g, s, hq, hkv, d, mask, mask)
+    rows = [int(m.sum(dim=1).min().item()) for m in masks]
+    print(f"[rectangle] flash_fwd at a TVG rectangle shape (G={g}, B={s}, {hq}, "
+          f"{d}), left-padded (fewest real rows {rows[0]}) and CPN-masked (fewest visible "
+          f"{rows[-1]}): max|d| {', '.join(f'{e:.3e}' for e in errs)} (tol {ATTN_ATOL} + "
+          f"{ATTN_RTOL}|plain|), masked rows zero; kernel {ms:.4f} ms (raw entry point, CUDA "
+          f"graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return dict(shape=[g, s, hq, hkv, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max(errs))
+
+
+def rel_gap(got, want):
+    """|got - want| / |want| (Frobenius), in fp32."""
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_dormant(st, card):
+    """Phase 14: the dormant features at the 7B's width on phase 3's weights.
+    PyramidDrop on PDROP_ROWS VTG rows (the video block at its layout slot, the
+    prompt's last token ranking): keep-all against vtg_hidden; one uniform
+    stage (PDROP_LAYER, PDROP_RATIO) through B1 against the same forward
+    through the plain attention; one attention-ranked stage through B1 (its
+    launches, shape and kept tokens; the plain run's kept tokens beside).
+    The windowed attention on the card (forward and, under autograd,
+    backward) against the same on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from blim_tpu_torch.engine.rerank import CaptionBank
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import pyramid_drop, qwen2
+    from blim_tpu_torch.models import videochat_flash as vcf
+    from blim_tpu_torch.scoring import criteria
+
+    t0 = time.time()
+    cfg, params, tok, layout = st["flow"]
+    layers = cfg.llm.num_hidden_layers
+    inputs = st["inputs"]
+    bank = CaptionBank.build_vtg(inputs.captions[:PDROP_ROWS], tok, "MSRVTT", layout)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    ids, mask = dev(bank.input_ids), dev(bank.attention_mask)
+    video = dev(inputs.features[:PDROP_ROWS]).to(
+        params["llm"]["embed_tokens"]["embedding"].dtype)
+    labels = dev(bank.window_labels)
+    ws, wl = layout.label_window
+    lm_kernel = qwen2.lm_head_kernel(params["llm"])
+
+    def scores(hidden, dropped=0):
+        """The rows' VTG caption scores from a final hidden whose label
+        window moved left by the dropped tokens."""
+        win = hidden[:, ws - dropped: ws - dropped + wl]
+        return criteria.vtg_likelihood_from_hidden(win, lm_kernel, labels).float()
+
+    def score_gap(a, b):
+        return (a - b).abs().max().item()
+    vs, qpos = layout.video_start, layout.caption_start - 1
+    nv = cfg.video_tokens_vtg
+
+    def plain_attention(q, k, v, *, key_mask=None, query_mask=None, causal=True, scale=None,
+                        window=None):
+        return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
+
+    def pdrop(ratio, kind, plain=False, stale_positions=False):
+        c = dataclasses.replace(cfg, mm_llm_compress=True, llm_compress_layer_list=(PDROP_LAYER,),
+                                llm_image_token_ratio_list=(1.0, ratio), llm_compress_type=kind)
+        dropped = vcf.pdrop_total_dropped(c)
+        mha, rope = qwen2.multi_head_attention, pyramid_drop.rope_cos_sin
+        if plain:
+            qwen2.multi_head_attention = plain_attention
+        if stale_positions:      # the planted fault: positions after the drop not renumbered
+            def rope_stale(pos, *a):
+                if pos.shape[1] == T - dropped:
+                    pos = pos + (pos >= vs + nv - dropped) * dropped
+                return rope(pos, *a)
+            pyramid_drop.rope_cos_sin = rope_stale
+        fa.reset_counts()
+        try:
+            with torch.no_grad():
+                hidden, idx = vcf.vtg_hidden_pdrop(params, c, ids, mask, video, vs, qpos)
+            torch.cuda.synchronize()
+        finally:
+            qwen2.multi_head_attention, pyramid_drop.rope_cos_sin = mha, rope
+        return hidden, idx, fa.counts(), dropped
+
+    T = ids.shape[1]
+    with torch.no_grad():
+        ref = vcf.vtg_hidden(params, cfg, ids, mask, video, vs)
+        mha = qwen2.multi_head_attention
+        qwen2.multi_head_attention = plain_attention
+        try:
+            ref_plain = vcf.vtg_hidden(params, cfg, ids, mask, video, vs)
+        finally:
+            qwen2.multi_head_attention = mha
+    keep, keep_idx, keep_counts, _ = pdrop(1.0, "uniform")
+    drop, drop_idx, drop_counts, dropped = pdrop(PDROP_RATIO, "uniform")
+    drop_plain, plain_idx, plain_counts, _ = pdrop(PDROP_RATIO, "uniform", plain=True)
+    fault = pdrop(PDROP_RATIO, "uniform", stale_positions=True)[0]
+    rel = {"no drop": rel_gap(ref, ref_plain), "drop": rel_gap(drop, drop_plain),
+           "fault": rel_gap(fault, drop_plain)}
+    gap_keep = score_gap(scores(keep), scores(ref))
+    s_plain = scores(drop_plain, dropped)
+    gap_full = score_gap(scores(ref), scores(ref_plain))
+    gap_drop = score_gap(scores(drop, dropped), s_plain)
+    gap_fault = score_gap(scores(fault, dropped), s_plain)
+    att, att_idx, att_counts, _ = pdrop(PDROP_RATIO, "attention")
+    att_plain, att_plain_idx, _, _ = pdrop(PDROP_RATIO, "attention", plain=True)
+    kept = att_idx[:, vs: vs + nv - dropped]
+    kept_plain = att_plain_idx[:, vs: vs + nv - dropped]
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / kept.shape[1]
+                       for a, b in zip(kept, kept_plain)])
+    launch = dict({k: 0 for k in keep_counts}, flash_fwd=layers)
+    print(f"[dormant] PyramidDrop on {PDROP_ROWS} VTG rows of {T} tokens ({nv} video tokens at "
+          f"{vs}, ranked from position {qpos}), max |d| of the caption scores (~"
+          f"{s_plain.mean().item():.2f}): keep-all vs vtg_hidden {gap_keep:.3e}; one uniform "
+          f"stage at layer {PDROP_LAYER} keeping {PDROP_RATIO} of the video ({dropped} dropped, "
+          f"{T} -> {drop.shape[1]} tokens) through B1 vs the plain attention {gap_drop:.3e} "
+          f"(tol {PACKED_TOL}; vtg_hidden through B1 vs plain, no drop: {gap_full:.3e}; planted "
+          f"positions not renumbered after the drop: {gap_fault:.3e}); final hidden |d|/|plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + "; kept-index maps "
+          f"{'equal' if torch.equal(drop_idx, plain_idx) else 'DIFFERENT'}; attention-ranked "
+          f"stage: {att.shape[1]} tokens, kept video tokens shared with the plain run's "
+          f"{overlap:.3f}; launches keep-all {keep_counts['flash_fwd']}, uniform "
+          f"{drop_counts['flash_fwd']}, attention {att_counts['flash_fwd']}, plain "
+          f"{plain_counts['flash_fwd']} (expected {layers}, {layers}, {layers}, 0) [{card}]",
+          flush=True)
+    for name, c in (("keep-all", keep_counts), ("uniform", drop_counts), ("attention", att_counts)):
+        if c != launch:
+            fail(f"PyramidDrop {name}: launches {c} != {launch}")
+    if sum(plain_counts.values()):
+        fail(f"PyramidDrop plain run launched a kernel: {plain_counts}")
+    if gap_keep > PACKED_TOL or gap_drop > PACKED_TOL or not torch.equal(drop_idx, plain_idx):
+        fail("PyramidDrop through B1 disagrees with vtg_hidden or with its plain run")
+    if gap_fault <= PACKED_TOL:
+        fail(f"a planted PyramidDrop position fault moved the scores by {gap_fault:.3e}, not "
+             f"above {PACKED_TOL}: the check cannot see it")
+    for h in (keep, drop, att):
+        if not torch.isfinite(h).all():
+            fail("PyramidDrop: non-finite hidden")
+    if drop.shape[1] != T - dropped or att.shape != drop.shape:
+        fail(f"PyramidDrop: {drop.shape[1]} / {att.shape[1]} tokens, not {T - dropped}")
+    if not (torch.diff(kept, dim=1) > 0).all():
+        fail("PyramidDrop attention stage: kept video indices not increasing")
+
+    # the sliding window: plain windowed attention on the card vs the CPU
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    hq, hkv, d = 28, 4, 128
+    q, k, v = (torch.randn((2, T, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    mask = mask[:2]
+    before = fa.counts()
+    qc, kc, vc = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = qwen2.multi_head_attention(qc, kc, vc, key_mask=mask, query_mask=mask, causal=True,
+                                     scale=d ** -0.5, window=WINDOW)
+    (out.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    launched = fa.counts() != before
+    qh, kh, vh = (t.detach().cpu().requires_grad_(True) for t in (q, k, v))
+    want = reference_attention(qh, kh, vh, mask.cpu(), mask.cpu(), True, d ** -0.5, WINDOW)
+    (want.float().square().sum()).backward()
+    err = (out.detach().cpu().float() - want.detach().float()).abs()
+    excess = (err - ATTN_RTOL * want.detach().float().abs()).max().item()
+    grads = [((a.grad.cpu().float() - b.grad.float()).abs().max()
+              / b.grad.float().abs().max()).item() for a, b in ((qc, qh), (kc, kh), (vc, vh))]
+    unwindowed = qwen2.multi_head_attention(q, k, v, key_mask=mask, query_mask=mask,
+                                            causal=True, scale=d ** -0.5)
+    moved = (unwindowed.float() - out.detach().float()).abs().max().item()
+    print(f"[dormant] windowed attention (window {WINDOW}) on the card at (2, {T}, {hq}, {d}): "
+          f"forward vs the CPU plain version max|d| {err.max().item():.3e} (tol {ATTN_ATOL} + "
+          f"{ATTN_RTOL}|plain|), gradients dq / dk / dv max|d|/max|plain| "
+          + " / ".join(f"{g:.3e}" for g in grads) + f" (tol {GRAD_TOL}); without the window the "
+          f"output moves by {moved:.3e}; kernels launched: {'YES' if launched else 'none'} "
+          f"[{card}]", flush=True)
+    if excess > ATTN_ATOL or max(grads) > GRAD_TOL or launched or moved < 1e-2:
+        fail("windowed attention on the card disagrees with the CPU plain version")
+    print(f"[time] phase 14 (dormant) took {time.time() - t0:.1f}s", flush=True)
+    return dict(pdrop_launches=drop_counts["flash_fwd"] + att_counts["flash_fwd"]
+                + keep_counts["flash_fwd"])
 
 
 def _named_leaves(tree, prefix=""):
@@ -2218,6 +2633,26 @@ def check_native_reader(feature_dir, card):
         fail("cli: the native gather differs from the memmap gather")
 
 
+def check_profile_trace(path, wall, card):
+    """Phase 14's --profile_dir check, on phase 11's fine-tuned eval: the
+    Chrome trace exists and holds events; prints how many are the card's
+    kernels (B1's among them) and the trace's size."""
+    if not os.path.exists(path):
+        fail(f"--profile_dir wrote no {path}")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = sum("flash" in e.get("name", "") for e in kernels)
+    print(f"[dormant] --profile_dir: the fine-tuned CLI eval (wall {wall:.2f}s with the profiler "
+          f"on) wrote {os.path.basename(path)}, {size / 2**20:.1f} MiB, {len(events)} events, "
+          f"{len(kernels)} of them the card's kernels ({flash} named flash*)"
+          + ("" if kernels else ": the profiler recorded no device activity here") + f" [{card}]",
+          flush=True)
+    if not events:
+        fail("--profile_dir: the trace holds no events")
+
+
 def run_cli(argv, card):
     """pipelines.main.main in-process on the card -> (results, the prefix
     forwards of the engine it built, {wall, peak_gib, evals: [s], epochs:
@@ -2425,9 +2860,11 @@ def phase_cli(card):
               f"{n_trainable:,}", flush=True)
 
         # the fine-tuned eval of the saved best state
+        profile_dir = os.path.join(out, "profile")
         res_resumed, prefix_forwards, times, counts = run_cli(
             common + ["--eval", "--resume", os.path.join(train_dir, "checkpoint_best"),
-                      "--output_dir", os.path.join(out, "resumed")], card)
+                      "--output_dir", os.path.join(out, "resumed"), "--profile_dir",
+                      profile_dir], card)
         expected = dict({k: 0 for k in counts}, flash_fwd=layers * prefix_forwards)
         same = loop_lib.results_table(res_resumed) == loop_lib.results_table(res_train)
         print(f"[cli] fine-tuned eval (--eval --resume checkpoint_best): wall {times['wall']:.2f}s, "
@@ -2441,6 +2878,7 @@ def phase_cli(card):
         if not same:
             print(loop_lib.results_table(res_train), flush=True)
             fail("cli: the resumed eval's table differs from the training epoch's")
+        check_profile_trace(os.path.join(profile_dir, "trace.json"), times["wall"], card)
 
         # extract.main on the checkpoint's tower, held to the featurizer on the
         # seeded tower; first, two featurizer runs on one input must agree bit
@@ -2980,6 +3418,7 @@ def chat_kernel_b2(n_tiles, card):
 
 
 def main():
+    t_script = time.time()
     if not (ROOT / "blim_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"the blim_tpu_torch package is not next to {Path(__file__).name}")
     import torch
@@ -2999,12 +3438,14 @@ def main():
     phase_packed(st, card)
     fine = phase_finetuned(st, card)
     naive = phase_naive(st, fine, card)
+    rect = phase_rectangle(st, fine, card)
     t0 = time.time()
     train_records = phase_train_kernels(card)
     train = phase_train(st, card)
     phase_gradcheck(st, card)
     print(f"[time] phases 6-8 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
           flush=True)
+    dormant = phase_dormant(st, card)
     dp_refs = dp_yardsticks(st, fine)
     b1_launches = st["launches"]
     del st, fine                # the 7B weights: phases 9-10 measure their own peak memory
@@ -3023,7 +3464,10 @@ def main():
     dp_b1, dp_train = dp["13a"]
     kernels = [{"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
                 "replaces": ref + "42", "launches": b1_launches, **record, "chat": chat_b1,
-                "naive_launches": naive["launches"], "dp_finetuned_launches_per_rank": dp_b1}]
+                "naive_launches": naive["launches"], "dp_finetuned_launches_per_rank": dp_b1,
+                "rectangle_launches": rect["launches"],
+                "rectangle_tvg_prefix_forwards": rect["tvg_forwards"],
+                "rectangle_tvg": rect["b1"], "pdrop_launches": dormant["pdrop_launches"]}]
     for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
                                ("flash_dq", "flash_bwd.cu", "195"),
                                ("flash_dkv", "flash_bwd.cu", "252")):
@@ -3034,6 +3478,7 @@ def main():
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
                     "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
                     "chat": chat_b2})
+    print(f"[time] the whole script took {time.time() - t_script:.1f}s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

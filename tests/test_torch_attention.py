@@ -113,12 +113,17 @@ def test_window_uses_the_plain_path_on_cpu(rng):
 
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
-    """Off the CPU the dispatch goes to the kernel or raises: a window has no
-    kernel, and the wrapper refuses devices it has no kernel for."""
+    """Off the CPU the dispatch goes to the kernel or raises: the wrapper
+    refuses devices it has no kernel for. A window is not such a fallback:
+    it is the plain windowed attention on every device (the JAX wrapper runs
+    it as XLA whenever a window is set), so it runs there too, launching
+    nothing."""
     q = torch.empty((1, 8, 4, 128), device="meta")
     k = torch.empty((1, 8, 2, 128), device="meta")
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, k, window=4)
+    before = tfa.counts()
+    out = multi_head_attention(q, k, k, window=4)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert tfa.counts() == before
     with pytest.raises(ValueError):
         multi_head_attention(q, k, k)
 

@@ -208,6 +208,62 @@ def test_get_recall_copy_matches(zero, multi_gt):
         t2v, v2t, t2v_ids, v2t_ids)
 
 
+def _alt_inputs(kind):
+    rng = np.random.default_rng(5)
+    if kind == "random":
+        return rng.standard_normal((40, 40))
+    x = rng.integers(0, 4, size=(24, 24)).astype(np.float64)   # heavy ties
+    x[3, :] = np.nan                                          # a NaN diagonal
+    return x
+
+
+def test_alt_metrics_source_is_a_copy_below_its_docstring():
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+
+    def body(path):
+        text = path.read_text()
+        return text[text.index('"""', 3) + 3:]
+
+    copy = repo / "blim_tpu_torch" / "scoring" / "alt_metrics.py"
+    original = repo / "blim_tpu" / "scoring" / "alt_metrics.py"
+    assert len(body(copy)) > 3000 and body(copy) == body(original)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties_nan"])
+def test_compute_metrics_copies_match(kind):
+    from blim_tpu.scoring import alt_metrics as jalt
+    from blim_tpu_torch.scoring import alt_metrics as talt
+
+    x = _alt_inputs(kind)
+    t, j = trecall.compute_metrics(x), jrecall.compute_metrics(x)
+    assert t == j and t == talt.compute_metrics(x) == jalt.compute_metrics(x)
+    if kind == "ties_nan":
+        assert len(t["cols"]) > 24          # the tie expansion happened
+
+
+def test_alt_metrics_multi_sentence_and_tensor_copies_match(capsys):
+    from blim_tpu.scoring import alt_metrics as jalt
+    from blim_tpu_torch.scoring import alt_metrics as talt
+
+    rng = np.random.default_rng(6)
+    sim = rng.standard_normal((12, 5, 12))
+    sim[4, 3:, :] = -np.inf
+    sim[7, 4, :] = np.nan
+    assert talt.tensor_text_to_video_metrics(sim) == jalt.tensor_text_to_video_metrics(sim)
+    np.testing.assert_array_equal(talt.tensor_video_to_text_sim(sim),
+                                  jalt.tensor_video_to_text_sim(sim))
+    logits = rng.standard_normal((15, 6))
+    assert talt.multi_sentence_retrieval(logits, [2, 5, 6, 10, 12, 14]) == \
+        jalt.multi_sentence_retrieval(logits, [2, 5, 6, 10, 12, 14])
+    m = talt.compute_metrics(rng.standard_normal((30, 30)))
+    talt.print_metrics(30, 30, m, m, m, m)
+    ours = capsys.readouterr().out
+    jalt.print_metrics(30, 30, m, m, m, m)
+    assert ours == capsys.readouterr().out and "R@1" in ours
+
+
 @pytest.mark.parametrize("cpn,has_tvg", [(True, False), (False, False), (True, True)])
 def test_all_scoring_results_copy_matches(cpn, has_tvg):
     n = 12

@@ -22,6 +22,10 @@ weights and LoRA (B factors made non-zero) bridged from the JAX trees.
     counts (the VTG loss is a token mean) it equals the mean of the halves'
     gradients and differs from the joined batch's; accumulation over 2
     micro-steps makes one all-reduce;
+  * the sharded rectangle schedule (`evaluation(packed=False)`), zero-shot
+    and fine-tuned, in the same spawn: every matrix on every rank within
+    1e-4 of JAX's single-process rectangle evaluation, identical across the
+    ranks, each k-bucket's groups split into disjoint shards that cover it;
   * SmoothedValue / MetricLogger sums and all_reduce_mean at world 2;
   * pipelines.main under 2 ranks with --tiny --device cpu (eval, one
     epoch, --resume): only rank 0 writes log.txt and checkpoints, the
@@ -65,6 +69,8 @@ ATOL = RTOL = 1e-4           # port against JAX, fp32
 PARAM_ATOL, PARAM_RTOL = 2e-5, 1e-4   # tests/test_torch_train.py's
 GRAD_REL = 1e-4
 SPE = 4
+RECT_PRIOR_BATCH = 4         # captions a rectangle prior step (64 by default) in both
+                             # packages: less padding of the 152k-vocabulary CE on the CPU
 CAPTIONS = ["a cat sits on a mat", "a man rides a horse through a field",
             "children play soccer in the park", "a chef cooks pasta in a kitchen",
             "a dog catches a frisbee", "two people dance under the lights",
@@ -161,17 +167,21 @@ def _engine(inp, has_tvg):
     return engine, tok
 
 
-def _eval(inp, has_tvg, shared_prefix=True, engine=None):
-    """The evaluation of the shared inputs (CPN on) -> ({t2v, v2t}, engine)."""
+def _eval(inp, has_tvg, shared_prefix=True, engine=None, packed=True):
+    """The evaluation of the shared inputs (CPN on) -> ({t2v, v2t}, engine);
+    packed=False is the rectangle schedule, its priors RECT_PRIOR_BATCH
+    captions a step."""
     if engine is None:
         engine, tok = _engine(inp, has_tvg)
+        if not packed:
+            engine.prior_batch = RECT_PRIOR_BATCH
     else:
         tok = ByteFallbackTokenizer()
     e = inp["eval"]
     t2v, v2t = teval.evaluation(
         engine, teval.EvalInputs(CAPTIONS, np.arange(N), e["feats"], e["t2v"], e["v2t"]), tok,
         "MSRVTT", topk=TOPK, cpn=True, has_tvg=has_tvg, verbose=False,
-        shared_prefix=shared_prefix)
+        shared_prefix=shared_prefix, packed=packed)
     return {"t2v": t2v, "v2t": v2t}, engine
 
 
@@ -306,6 +316,12 @@ def _dp_worker(rank, out_dir):
         out[flow] = {"mats": mats, "shards": engine.pack_shards,
                      "prefix_forwards": engine.prefix_forwards,
                      "all_reduce": dist.calls["all_reduce"]}
+    out["rect"] = {}
+    for flow, has_tvg in FLOWS.items():
+        dist.calls.clear()
+        mats, engine = _eval(inp, has_tvg, packed=False)
+        out["rect"][flow] = {"mats": mats, "shards": engine.pack_shards,
+                             "all_reduce": dist.calls["all_reduce"]}
     out["train"] = {case: _train_case(inp, case, rank) for case in TRAIN_CAPTIONS}
     out["accum"] = _accum_case(inp, rank)
     out["cli"] = _cli(inp, rank)
@@ -432,16 +448,19 @@ def dp(tmp_path_factory, tokenizer):
         jvtg = jax_vtg_layout(tokenizer, "MSRVTT", jcfg.video_tokens_vtg, CAPS)
         jtvg = jax_tvg_layout(tokenizer, jcfg.num_clips, CAPS)
         mesh = make_mesh(devices=jax.devices()[:1])
-        jax_mats = {}
+        jax_mats, jax_rect = {}, {}
         for flow, has_tvg in FLOWS.items():
-            jengine = JaxRerankEngine(
-                jp, jcfg, jvtg, jtvg, mesh,
-                lora=jax.tree_util.tree_map(jnp.asarray, lora_np) if has_tvg else None,
-                lora_scale=SCALE)
-            t2v, v2t = jeval.evaluation(
-                jengine, jeval.EvalInputs(CAPTIONS, np.arange(N), feats, ev["t2v"], ev["v2t"]),
-                tokenizer, "MSRVTT", topk=TOPK, cpn=True, has_tvg=has_tvg, verbose=False)
-            jax_mats[flow] = {"t2v": t2v, "v2t": v2t}
+            for packed, store in ((True, jax_mats), (False, jax_rect)):
+                jengine = JaxRerankEngine(
+                    jp, jcfg, jvtg, jtvg, mesh,
+                    lora=jax.tree_util.tree_map(jnp.asarray, lora_np) if has_tvg else None,
+                    lora_scale=SCALE, prior_batch=64 if packed else RECT_PRIOR_BATCH)
+                t2v, v2t = jeval.evaluation(
+                    jengine, jeval.EvalInputs(CAPTIONS, np.arange(N), feats, ev["t2v"],
+                                              ev["v2t"]),
+                    tokenizer, "MSRVTT", topk=TOPK, cpn=True, has_tvg=has_tvg, verbose=False,
+                    packed=packed)
+                store[flow] = {"t2v": t2v, "v2t": v2t}
 
         jvg = (vtg_j.video_start, *vtg_j.label_window)
         jtg = (tvg_j.video_start, int(tvg_j.gather_positions[0]))
@@ -482,7 +501,8 @@ def dp(tmp_path_factory, tokenizer):
             for p in group.ctx.processes:
                 if p.is_alive():
                     p.kill()
-    return dict(ranks=results, faults=faults, jax=jax_mats, jax_train=jax_train, one=one, tmp=tmp)
+    return dict(ranks=results, faults=faults, jax=jax_mats, jax_rect=jax_rect,
+                jax_train=jax_train, one=one, tmp=tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +599,44 @@ def test_pack_shards_are_disjoint_and_cover_every_bucket(dp, flow):
     # ... and rank 1 still joined every merge
     merges = 1 + 2 * FLOWS[flow]
     assert [out[flow]["all_reduce"] for out in dp["ranks"]] == [merges, merges]
+    scored = [sum(hi - lo for _, _, lo, hi, _ in s) for s in shards]
+    assert sum(scored) == sum(m for _, _, _, _, m in shards[0]) and min(scored) > 0
+
+
+@pytest.mark.parametrize("flow,direction,name", CELLS, ids=CELL_IDS)
+def test_sharded_rectangle_matches_jax_on_every_rank(dp, flow, direction, name):
+    j = dp["jax_rect"][flow][direction][name]
+    for out in dp["ranks"]:
+        t = out["rect"][flow]["mats"][direction][name]
+        assert t.shape == j.shape == (N, N)
+        np.testing.assert_array_equal(t == -100.0, j == -100.0)
+        np.testing.assert_allclose(t, j, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_sharded_rectangle_identical_across_ranks(dp, flow):
+    a, b = (out["rect"][flow]["mats"] for out in dp["ranks"])
+    for direction in ("t2v", "v2t"):
+        assert a[direction].keys() == b[direction].keys()
+        for name in a[direction]:
+            np.testing.assert_array_equal(a[direction][name], b[direction][name])
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_rectangle_shards_are_disjoint_and_cover_every_bucket(dp, flow):
+    """Each k-bucket of the rectangle's groups is split between the ranks:
+    rank 0 takes [0, m // 2 + 1), rank 1 the rest; the VTG prior pass is not
+    sharded. Both ranks join each merge: VTG, and TVG scores and priors."""
+    shards = [out["rect"][flow]["shards"] for out in dp["ranks"]]
+    assert len(shards[0]) == len(shards[1]) > 0
+    passes = set()
+    for (n0, k0, lo0, hi0, m0), (n1, k1, lo1, hi1, m1) in zip(*shards):
+        assert (n0, k0, m0) == (n1, k1, m1)
+        assert (lo0, hi0, lo1, hi1) == (0, min(m0, m0 // 2 + 1), hi0, m0)
+        passes.add(n0)
+    assert passes == ({"vtg_shared", "tvg_shared"} if FLOWS[flow] else {"vtg_shared"})
+    merges = 1 + 2 * FLOWS[flow]
+    assert [out["rect"][flow]["all_reduce"] for out in dp["ranks"]] == [merges, merges]
     scored = [sum(hi - lo for _, _, lo, hi, _ in s) for s in shards]
     assert sum(scored) == sum(m for _, _, _, _, m in shards[0]) and min(scored) > 0
 

@@ -150,9 +150,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "data/prompts", "data/tokenization", "data/video", "engine/train",
                    "engine/loop", "kernels/flash_attention", "kernels/attention",
                    "models/generation", "models/qwen2", "models/projector", "models/umt_vit",
-                   "models/videochat_flash", "pipelines/configs", "pipelines/extract",
-                   "pipelines/main", "scoring/criteria", "utils/distributed",
-                   "utils/logging"):
+                   "models/videochat_flash", "models/pyramid_drop", "pipelines/configs",
+                   "pipelines/extract", "pipelines/main", "scoring/criteria",
+                   "scoring/alt_metrics", "scoring/recall", "utils/distributed",
+                   "utils/logging", "utils/lr_decay", "utils/profiling"):
         assert f"blim_tpu_torch/{module}.py" in names, module
     for f in files:
         for mod in _imports(f):

@@ -179,13 +179,18 @@ def test_dispatch_without_grad_keeps_the_inference_path():
 
 def test_meta_tensor_needing_grad_raises_instead_of_computing_plain():
     """Off the CPU, a tensor that needs a gradient reaches the kernels or
-    raises: the wrapper refuses a device it has no kernel for."""
+    raises: the wrapper refuses a device it has no kernel for. A window is
+    not such a fallback: the windowed attention is plain torch ops on every
+    device (the JAX wrapper runs it as XLA whenever a window is set), so it
+    runs there under autograd, launching nothing."""
     q = torch.empty((1, 8, 4, 128), device="meta", requires_grad=True)
     k = torch.empty((1, 8, 2, 128), device="meta", requires_grad=True)
     with pytest.raises(ValueError):
         multi_head_attention(q, k, k)
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, k, window=4)
+    before = tfa.counts()
+    out = multi_head_attention(q, k, k, window=4)
+    assert out.device.type == "meta" and out.grad_fn is not None
+    assert tfa.counts() == before
     with pytest.raises(ValueError):
         tfa.flash_attention_backward(q, k, k, None, None, q, q, q)
 
