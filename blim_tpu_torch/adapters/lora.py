@@ -54,13 +54,20 @@ def apply_dense(p: Params, x: torch.Tensor, lora: Optional[Params] = None,
     if p.get("bias") is not None:
         y = y + p["bias"]
     if lora is not None:
-        xd = x
-        if dropout > 0.0 and generator is not None:
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout
-            xd = torch.where(keep, x / (1.0 - dropout), torch.zeros_like(x))
-        delta = (xd.to(lora["a"].dtype) @ lora["a"]) @ lora["b"]
-        y = y + (delta * scale).to(y.dtype)
+        y = y + lora_delta(lora, x, scale, dropout, generator).to(y.dtype)
     return y
+
+
+def lora_delta(lora: Params, x: torch.Tensor, scale: float, dropout: float = 0.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The LoRA delta alone, (alpha/r) * dropout(x) @ A @ B, in the factors'
+    precision. With dropout > 0 and a generator, each element of x is kept
+    with probability 1 - dropout and scaled by 1 / (1 - dropout)."""
+    xd = x
+    if dropout > 0.0 and generator is not None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout
+        xd = torch.where(keep, x / (1.0 - dropout), torch.zeros_like(x))
+    return ((xd.to(lora["a"].dtype) @ lora["a"]) @ lora["b"]) * scale
 
 
 def init_llm_lora(gen: torch.Generator, config, lora_cfg: LoraConfig) -> Params:
@@ -90,3 +97,45 @@ def init_projector_lora(gen: torch.Generator, mm_hidden: int, hidden: int,
     }
     tvg = {name: {k: t.clone() for k, t in f.items()} for name, f in mlp.items()}
     return {"mlp": mlp, "tvg_mlp": tvg}
+
+
+def merge_lora_into_dense(dense: Params, lora: Params, scale: float) -> Params:
+    """Fold a LoRA adapter into the base kernel: kernel + scale * A @ B in
+    fp32 (stacked (L, in, r) factors fold layer by layer), cast back to the
+    kernel's dtype."""
+    delta = torch.einsum("...dr,...ro->...do", lora["a"].float(), lora["b"].float()) * scale
+    out = dict(dense)
+    out["kernel"] = (dense["kernel"].float() + delta).to(dense["kernel"].dtype)
+    return out
+
+
+def merge_lora(params: Params, lora: Params, scale: float) -> Params:
+    """A copy of the model's params tree with a whole LoRA tree folded in by
+    merge_lora_into_dense, at the scale apply_dense uses: the LLM's
+    q/k/v/o_proj (every layer) and lm_head, and the projector's `mlp` and
+    `tvg_mlp` Linears, each where the tree has factors for it. Scoring and
+    chat on the result with lora=None compute what they compute on `params`
+    with the LoRA applied (without dropout). A tied lm_head becomes an
+    untied kernel. Untouched leaves are shared with `params`."""
+    out = dict(params)
+    llm_lora = lora.get("llm")
+    if llm_lora is not None:
+        llm = dict(params["llm"])
+        layers = dict(llm["layers"])
+        for name, factors in llm_lora.get("layers", {}).items():
+            layers[name] = merge_lora_into_dense(layers[name], factors, scale)
+        llm["layers"] = layers
+        if "lm_head" in llm_lora:
+            head = llm["lm_head"]
+            if head["kernel"] is None:
+                head = dict(head, kernel=llm["embed_tokens"]["embedding"].T)
+            llm["lm_head"] = merge_lora_into_dense(head, llm_lora["lm_head"], scale)
+        out["llm"] = llm
+    proj_lora = lora.get("projector")
+    if proj_lora is not None:
+        proj = dict(params["projector"])
+        for mlp, fcs in proj_lora.items():
+            proj[mlp] = dict(proj[mlp], **{fc: merge_lora_into_dense(proj[mlp][fc], f, scale)
+                                           for fc, f in fcs.items()})
+        out["projector"] = proj
+    return out

@@ -106,6 +106,11 @@ class ModelConfig:
         """Spliced video block length in VTG mode (all clip tokens, flattened)."""
         return self.num_clips * self.tokens_per_clip
 
+    @property
+    def video_tokens_tvg(self) -> int:
+        """Spliced video block length in TVG mode (1 mean-pooled token per clip)."""
+        return self.num_clips
+
 
 def tiny_model_config(
     vocab_size: int = 512,

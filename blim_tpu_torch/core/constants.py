@@ -17,3 +17,9 @@ IM_START_TOKEN_ID = 151644
 
 # Qwen2 `<|endoftext|>` token id, used as pad.
 QWEN2_PAD_TOKEN_ID = 151643
+
+# The LLaVA family's image patch and image start / end strings (unused by the
+# VideoChat-Flash prompts, kept with the original's constants).
+DEFAULT_IMAGE_PATCH_TOKEN = "<im_patch>"
+DEFAULT_IM_START_TOKEN = "<im_start>"
+DEFAULT_IM_END_TOKEN = "<im_end>"

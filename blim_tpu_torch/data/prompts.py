@@ -1,5 +1,8 @@
 """Prompt construction and the static layouts (copy of
-blim_tpu/data/prompts.py, without its flat reference-shaped builders).
+blim_tpu/data/prompts.py). `build_vtg_example`, `build_tvg_example` and
+`splice_flat_example` are the reference's flat prompt functions and splice,
+byte for byte: the tests and scripts/parity_torch.py hold the layouts and
+the reference's own prompt functions to them.
 
   VTG (score P(text|video)), right-padded:
       [pre][VIDEO x Nv][post][caption ... <|im_end|> \\n][PAD...]
@@ -85,6 +88,49 @@ def tvg_prompt_strings(caption: str) -> Tuple[str, str]:
     conv.append_message(conv.roles[0], f"{TVG_INSTRUCTION}\nCaption: {caption}")
     conv.append_message(conv.roles[1], DEFAULT_IMAGE_TOKEN)
     return prompt_only, conv.get_prompt()
+
+
+def build_vtg_example(caption: str, dataset: str, tokenizer) -> Dict[str, np.ndarray]:
+    """Unspliced (flat) VTG ids/labels/mask — exact parity with get_vtg_id.
+
+    Reference: base_dataset.py:60-84. `input_ids` contains one -200 image
+    placeholder; `labels` mask everything through the assistant header.
+    """
+    prompt_only, full = vtg_prompt_strings(caption, dataset)
+    prompt_ids = tokenizer_image_token(prompt_only, tokenizer)
+    input_ids = tokenizer_image_token(full, tokenizer)
+    assert input_ids[: len(prompt_ids)] == prompt_ids, "prompt is not a prefix of the full sequence"
+    labels = list(input_ids)
+    labels[: len(prompt_ids)] = [IGNORE_INDEX] * len(prompt_ids)
+    pad_id = tokenizer.pad_token_id
+    attn = [int(t != pad_id) for t in input_ids]
+    return {
+        "input_ids": np.asarray(input_ids, np.int32),
+        "labels": np.asarray(labels, np.int32),
+        "attention_mask": np.asarray(attn, np.int32),
+        "prompt_len": np.int32(len(prompt_ids)),
+    }
+
+
+def build_tvg_example(caption: str, tokenizer) -> Dict[str, np.ndarray]:
+    """Unspliced (flat) TVG ids/labels/mask — exact parity with get_tvg_id.
+
+    Reference: base_dataset.py:86-105.
+    """
+    prompt_only, full = tvg_prompt_strings(caption)
+    prompt_ids = tokenizer_image_token(prompt_only, tokenizer)
+    input_ids = tokenizer_image_token(full, tokenizer)
+    assert input_ids[: len(prompt_ids)] == prompt_ids, "prompt is not a prefix of the full sequence"
+    labels = list(input_ids)
+    labels[: len(prompt_ids)] = [IGNORE_INDEX] * len(prompt_ids)
+    pad_id = tokenizer.pad_token_id
+    attn = [int(t != pad_id) for t in input_ids]
+    return {
+        "input_ids": np.asarray(input_ids, np.int32),
+        "labels": np.asarray(labels, np.int32),
+        "attention_mask": np.asarray(attn, np.int32),
+        "prompt_len": np.int32(len(prompt_ids)),
+    }
 
 
 def _round_up(x: int, m: int) -> int:
@@ -326,3 +372,41 @@ def make_tvg_layout(tokenizer, num_clips: int, max_caption_tokens: int = 96,
         seq_len=_round_up(body, align),
         pad_id=tokenizer.pad_token_id,
     )
+
+
+def splice_flat_example(
+    example: Dict[str, np.ndarray],
+    num_video_tokens: int,
+    tvg: bool,
+    tvg_prefix_length: int,
+) -> Dict[str, np.ndarray]:
+    """Reference-shaped splice of a flat (-200 placeholder) example.
+
+    Mirrors prepare_inputs_labels_for_multimodal's label/mask construction
+    (reference: modeling_videochat_flash.py:395-444) on token arrays — used by
+    tests to check the static layouts against the reference algorithm.
+    """
+    ids = example["input_ids"]
+    labels = example["labels"]
+    (img_positions,) = np.nonzero(ids == IMAGE_TOKEN_INDEX)
+    assert len(img_positions) == 1
+    ip = int(img_positions[0])
+    new_ids = np.concatenate([ids[:ip], np.zeros(num_video_tokens, np.int32), ids[ip + 1 :]])
+    new_labels = np.concatenate(
+        [labels[:ip], np.full(num_video_tokens, IGNORE_INDEX, np.int32), labels[ip + 1 :]]
+    )
+    is_video = np.zeros(len(new_ids), np.int32)
+    is_video[ip : ip + num_video_tokens] = 1
+    if tvg:
+        cpn = np.ones(len(new_ids), np.int32)
+        first_seg = np.zeros(ip, np.int32)
+        first_seg[:tvg_prefix_length] = 1
+        cpn[:ip] = first_seg
+    else:
+        cpn = 1 - is_video
+    return {
+        "input_ids": new_ids,
+        "labels": new_labels,
+        "cpn_mask": cpn,
+        "is_video": is_video,
+    }

@@ -67,6 +67,9 @@ class ByteFallbackTokenizer:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
 
+    def batch_decode(self, batch, skip_special_tokens: bool = False) -> List[str]:
+        return [self.decode(ids, skip_special_tokens=skip_special_tokens) for ids in batch]
+
 
 def load_tokenizer(model_path: Optional[str] = None):
     """HF tokenizer from a checkpoint directory that has tokenizer files,

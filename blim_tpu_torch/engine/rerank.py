@@ -38,6 +38,14 @@ The naive schedule (`score_grid_vtg`, `score_grid_tvg`) runs the full
 sequence of every pair, `batch_size` pairs a step (the A/B comparator the
 packed passes are held to); it is not sharded.
 
+FLOP accounting (utils/flops.py, the JAX package's model): every pass adds
+the work it dispatches to `flops` (padding inside a step counts) and the
+request's zero-waste work to `useful_flops` (one prefix a unique video or
+caption, exact real-length suffixes, per-segment attention), with the
+JAX package's formulas on its step geometry at one data shard. In a
+process group `flops` counts this rank's steps and `useful_flops` the
+whole request, as in the JAX package.
+
 The numpy schedulers (`group_pairs`, `group_pairs_bucketed`,
 `group_pairs_by_video`, `build_packs`, `build_tvg_packs`, `batch_plan`,
 `unique_pairs`, `topk_pairs`, `default_pack_sizes`,
@@ -65,6 +73,7 @@ from blim_tpu_torch.data.prompts import TVGLayout, VTGLayout
 from blim_tpu_torch.models import projector as projector_lib
 from blim_tpu_torch.models import videochat_flash as vcf
 from blim_tpu_torch.utils import distributed as dist
+from blim_tpu_torch.utils import flops as flops_lib
 
 Params = Dict[str, Any]
 
@@ -402,6 +411,11 @@ class RerankEngine:
         # naive full-sequence forwards (score_grid_*): 28 B1 launches each on CUDA
         self.naive_forwards = 0
         self.steps = 0
+        # analytic forward FLOPs (utils/flops.py): dispatched, and the
+        # request's zero-waste oracle; useful / dispatched is the schedule's
+        # packing efficiency
+        self.flops = 0.0
+        self.useful_flops = 0.0
         self.batch_size = batch_size
         # the rectangle schedule: prefix groups a step before the per-bucket
         # scaling, captions a prior step; a group runs at the smallest suffix
@@ -431,6 +445,67 @@ class RerankEngine:
         self.lora = lora
         self.params = dict(self.params, visual_head={"kernel": visual_head})
         self._prior_kv_cache = None
+
+    def reset_flops(self) -> None:
+        self.flops = 0.0
+        self.useful_flops = 0.0
+
+    def close(self) -> None:
+        """Release what the engine holds on the device now: the params and
+        LoRA references and the memoized prior-prefix K/V (the banks are
+        the caller's: upload returns them and the engine keeps none), then
+        the allocator's cached blocks on CUDA. For callers that keep the
+        engine referenced and want the memory back at once. Idempotent; a
+        closed engine raises AttributeError on use (the dropped names)."""
+        for name in ("params", "lora", "_prior_kv_cache"):
+            self.__dict__.pop(name, None)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- useful-work oracles (from the request, whatever the schedule) ---------
+
+    def _useful_vtg(self, banks, cap_idx: np.ndarray, vid_idx: np.ndarray) -> float:
+        llm = self.config.llm
+        P_len = self.vtg_layout.prefix_len
+        lens = banks["suffix_len_host"][cap_idx]
+        n_vid = len(np.unique(vid_idx))
+        return flops_lib.prefix_forward_flops(llm, n_vid, P_len) + \
+            flops_lib.suffix_forward_flops_varlen(llm, lens, P_len)
+
+    def _useful_vtg_prior(self, banks) -> float:
+        llm = self.config.llm
+        ids, _ = self.vtg_layout.prior_prefix()
+        lens = banks["suffix_len_host"]
+        return flops_lib.prefix_forward_flops(llm, 1, len(ids)) + \
+            flops_lib.suffix_forward_flops_varlen(llm, lens, len(ids))
+
+    def _useful_tvg(self, banks, cap_idx, vid_idx, vocab_videos: int,
+                    with_prior: bool) -> float:
+        llm = self.config.llm
+        W = self.config.num_clips
+        lens = banks["prefix_len_host"]
+        u_caps = np.unique(cap_idx)
+        n = len(cap_idx)
+        w_arr = np.full(n, W, np.float64)
+        u = flops_lib.prefix_forward_flops_varlen(llm, lens[u_caps])
+        u += flops_lib.suffix_forward_flops_varlen(
+            llm, w_arr, lens[cap_idx], lm_positions_per_suffix=0.0)
+        u += flops_lib.tvg_head_flops(self.config, n * W, vocab_videos)
+        if with_prior:
+            # prior(c, v) == prior(len(c), v): one head prefix a distinct
+            # length, one clips-wide query a unique (length, video) pair
+            hl = self.tvg_layout.tvg_prefix_length
+            u_lens = np.unique(lens[u_caps])
+            n_u = len(np.unique(np.stack(
+                [lens[cap_idx].astype(np.int64),
+                 np.asarray(vid_idx, np.int64)], axis=1), axis=0))
+            u += flops_lib.prefix_forward_flops_varlen(
+                llm, np.minimum(u_lens, hl))
+            u += flops_lib.suffix_forward_flops_varlen(
+                llm, np.full(n_u, W, np.float64), float(hl),
+                lm_positions_per_suffix=0.0)
+            u += flops_lib.tvg_head_flops(self.config, n_u * W, vocab_videos)
+        return u
 
     # -- banks -----------------------------------------------------------------
 
@@ -777,8 +852,10 @@ class RerankEngine:
                                vid_idx: np.ndarray) -> np.ndarray:
         """Packed VTG scores P(caption | video) for a flat pair list -> (n,)
         in input order."""
+        self.useful_flops += self._useful_vtg(banks, cap_idx, vid_idx)
         prefix_ids, prefix_mask = self._vtg_prefix_arrays()
         P_len = int(prefix_ids.shape[0])
+        llm = self.config.llm
         scores = np.zeros(len(cap_idx), np.float32)
         pending = []
         for size, packs in build_packs(vid_idx, cap_idx, banks["suffix_len_host"],
@@ -790,6 +867,8 @@ class RerankEngine:
             vids = np.asarray([key for key, _, _ in packs], np.int64)
 
             def run_step(sl, arrs, size=size, vids=vids):
+                self.flops += flops_lib.prefix_forward_flops(llm, len(sl), P_len)
+                self.flops += flops_lib.packed_suffix_forward_flops(llm, len(sl), size, P_len)
                 return self._vtg_packed_step(banks["feats"], prefix_ids, prefix_mask,
                                              self._tensor(vids[sl]), *arrs,
                                              n_segments=size // 4)
@@ -808,8 +887,10 @@ class RerankEngine:
     @torch.no_grad()
     def compute_vtg_priors_packed(self, banks: Dict[str, Any]) -> np.ndarray:
         """CPN prior P(caption) for every caption in the bank -> (n_captions,)."""
+        self.useful_flops += self._useful_vtg_prior(banks)
         prior_kv, prior_mask = self.compute_prior_kv(self.vtg_layout)
         P_prior = int(prior_mask.shape[1])
+        self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
         n_caps = banks["n_captions"]
         prior = np.zeros(n_caps, np.float32)
         pending = []
@@ -817,6 +898,8 @@ class RerankEngine:
                                        banks["suffix_len_host"], self.pack_sizes):
 
             def run_step(sl, arrs, size=size):
+                self.flops += flops_lib.packed_suffix_forward_flops(
+                    self.config.llm, len(sl), size, P_prior)
                 return self._vtg_prior_packed_step(prior_kv, prior_mask, *arrs,
                                                    n_segments=size // 4)
 
@@ -840,9 +923,13 @@ class RerankEngine:
         (n,) | None) in input order. The prior pass packs only each caption's
         instruction head (tvg_prefix_length tokens): the prior masks every
         other prefix key, so their K/V are never computed."""
+        self.useful_flops += self._useful_tvg(
+            banks, cap_idx, vid_idx, int(video_vocab.shape[0]), with_prior)
         assert "tvg_embeds" in banks, "upload() computes tvg_embeds for TVG banks"
         assert banks.get("lora_ref_host") is self.lora, (
             "engine.lora changed since upload(): tvg_embeds is stale, re-upload")
+        llm = self.config.llm
+        V = int(video_vocab.shape[0])
         W = self.config.num_clips
         hl = self.tvg_layout.tvg_prefix_length
         lens = banks["prefix_len_host"]
@@ -858,7 +945,11 @@ class RerankEngine:
                     continue
                 *bulk, pair_pos = self._assemble_tvg_packs_bulk(banks, packs, size, qn, head_len)
 
-                def run_step(sl, arrs):
+                def run_step(sl, arrs, size=size, qn=qn):
+                    g = len(sl)
+                    self.flops += flops_lib.packed_prefix_kv_flops(llm, g, size)
+                    self.flops += flops_lib.flat_query_suffix_flops(llm, g * qn, W, size)
+                    self.flops += flops_lib.tvg_head_flops(self.config, g * qn * W, V)
                     return self._tvg_packed_step(first_ids, tvg_embeds, video_vocab, *arrs,
                                                  cpn=cpn)
 
@@ -927,8 +1018,11 @@ class RerankEngine:
         grouped by video -> (n,) in input order. Groups hold `topk` suffixes
         (remainders in k-buckets 16/8/4); a group runs at the smallest suffix
         width bucket covering its longest caption, G_kb groups a step."""
+        self.useful_flops += self._useful_vtg(banks, cap_idx, vid_idx)
         G = groups_per_step or self.groups_per_step
         prefix_ids, prefix_mask = self._vtg_prefix_arrays()
+        P_len = int(prefix_ids.shape[0])
+        llm = self.config.llm
         lens = banks["suffix_len_host"]
         scores = np.zeros(len(cap_idx), np.float32)
         pending = []
@@ -941,7 +1035,10 @@ class RerankEngine:
                 G_kb = max(1, min(G * topk * RECT_VTG_WIDTH // (k * max(b, RECT_VTG_WIDTH)),
                                   G_CAP))
 
-                def run_step(sl, b=b, g_vid=g_vid, g_cap=g_cap):
+                def run_step(sl, b=b, g_vid=g_vid, g_cap=g_cap, k=k, G_kb=G_kb):
+                    self.flops += flops_lib.prefix_forward_flops(llm, G_kb, P_len)
+                    self.flops += flops_lib.suffix_forward_flops(
+                        llm, G_kb * k, b, P_len, lm_positions=b - 1)
                     return self._vtg_shared_step(banks, prefix_ids, prefix_mask,
                                                  self._tensor(g_vid[sl]),
                                                  self._tensor(g_cap[sl]), b)
@@ -957,12 +1054,17 @@ class RerankEngine:
         """CPN prior P(caption) of every caption in the bank, prior_batch
         captions a step at the smallest suffix width bucket covering them
         -> (n_captions,). Not sharded: every rank scores every prior."""
+        self.useful_flops += self._useful_vtg_prior(banks)
         prior_kv, prior_mask = self.compute_prior_kv(self.vtg_layout)
+        P_prior = int(prior_mask.shape[1])
+        self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
         B = self.prior_batch
         prior = np.zeros(banks["n_captions"], np.float32)
         pending = []
         for b, sel in self._bucket_members(banks["suffix_len_host"], self.suffix_buckets):
             def run_step(sl, b=b):
+                self.flops += flops_lib.suffix_forward_flops(
+                    self.config.llm, B, b, P_prior, lm_positions=b - 1)
                 return self._vtg_prior_step(banks, prior_kv, prior_mask, self._tensor(sl), b)
 
             for real, out in self._run_groups(sel, B, run_step):
@@ -982,6 +1084,8 @@ class RerankEngine:
         k-bucket's groups run at the smallest prefix width covering their
         caption, G_k of them a step (about RECT_TVG_TOKENS tokens); the
         remainder buckets at the full width, one group a step."""
+        V = int(video_vocab.shape[0])
+        self.useful_flops += self._useful_tvg(banks, cap_idx, vid_idx, V, with_prior)
         assert "tvg_embeds" in banks, "upload() computes tvg_embeds for TVG banks"
         assert banks.get("lora_ref_host") is self.lora, (
             "engine.lora changed since upload(): tvg_embeds is stale, re-upload")
@@ -1000,7 +1104,12 @@ class RerankEngine:
             for B, sel in self._bucket_members(banks["prefix_len_host"][g_cap], widths):
                 G_k = max(1, min(G * RECT_TVG_TOKENS // (B + k * Wt), G_CAP)) if k == topk else 1
 
-                def run_step(sl, B=B, g_cap=g_cap, g_vid=g_vid):
+                def run_step(sl, B=B, g_cap=g_cap, g_vid=g_vid, k=k, G_k=G_k):
+                    self.flops += (2 if with_prior else 1) * (
+                        flops_lib.prefix_forward_flops(self.config.llm, G_k, B)
+                        + flops_lib.suffix_forward_flops(self.config.llm, G_k * k, Wt, B)
+                        + flops_lib.tvg_head_flops(self.config, G_k * k * self.config.num_clips,
+                                                   V))
                     return self._tvg_shared_step(banks, video_vocab, self._tensor(g_cap[sl]),
                                                  self._tensor(g_vid[sl]), with_prior, B)
 
@@ -1080,9 +1189,11 @@ class RerankEngine:
         return out
 
     def _run_pairs(self, step: Callable, cap_idx: np.ndarray, vid_idx: np.ndarray,
-                   with_prior: bool) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+                   with_prior: bool, step_flops: float
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Batch the flat pair list through `step`, batch_size pairs a step
-        (the tail padded with pair 0) -> (scores (n,), priors (n,) | None)."""
+        (the tail padded with pair 0), each step adding `step_flops` ->
+        (scores (n,), priors (n,) | None)."""
         n, B = len(cap_idx), self.batch_size
         pad = -(-n // B) * B - n
         cap = np.concatenate([cap_idx, np.zeros(pad, np.int64)]).astype(np.int64)
@@ -1091,6 +1202,7 @@ class RerankEngine:
         for s in range(0, n + pad, B):
             pending.append(step(self._tensor(cap[s: s + B]), self._tensor(vid[s: s + B]),
                                 with_prior))
+            self.flops += step_flops
             self.steps += 1
         outs = [np.concatenate([o[i].float().cpu().numpy() for o in pending])[:n]
                 if pending else np.zeros(0, np.float32) for i in range(1 + with_prior)]
@@ -1110,9 +1222,15 @@ class RerankEngine:
         """Naive VTG scores of the pairs (cap_idx, vid_idx) scattered at
         (rows, cols) into a fill-initialized matrix, and with `with_prior`
         the CPN prior matrix."""
+        self.useful_flops += self._useful_vtg(banks, cap_idx, vid_idx)
+        if with_prior:
+            self.useful_flops += self._useful_vtg_prior(banks)
+        T = int(banks["rows"]["input_ids"].shape[1])
+        step_flops = (2 if with_prior else 1) * flops_lib.full_forward_flops(
+            self.config.llm, self.batch_size, T, lm_positions=self.vtg_layout.label_window[1])
         scores, priors = self._run_pairs(
             lambda ci, vi, wp: self._vtg_naive_step(banks, ci, vi, wp), cap_idx, vid_idx,
-            with_prior)
+            with_prior, step_flops)
         return (self._scatter(rows, cols, scores, out_shape, fill),
                 None if priors is None else self._scatter(rows, cols, priors, out_shape, fill))
 
@@ -1123,8 +1241,14 @@ class RerankEngine:
                        ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Naive TVG scores (and with `with_prior` CPN priors) of the pairs,
         scattered as score_grid_vtg."""
+        V = int(video_vocab.shape[0])
+        self.useful_flops += self._useful_tvg(banks, cap_idx, vid_idx, V, with_prior)
+        T = int(banks["rows"]["input_ids"].shape[1])
+        step_flops = (2 if with_prior else 1) * (
+            flops_lib.full_forward_flops(self.config.llm, self.batch_size, T)
+            + flops_lib.tvg_head_flops(self.config, self.batch_size * self.config.num_clips, V))
         scores, priors = self._run_pairs(
             lambda ci, vi, wp: self._tvg_naive_step(banks, video_vocab, ci, vi, wp), cap_idx,
-            vid_idx, with_prior)
+            vid_idx, with_prior, step_flops)
         return (self._scatter(rows, cols, scores, out_shape, fill),
                 None if priors is None else self._scatter(rows, cols, priors, out_shape, fill))

@@ -416,3 +416,21 @@ def lm_logits(params: Params, hidden: torch.Tensor, config: Qwen2Config,
         lh = lora["lm_head"]
         logits = logits + matmul_f32(hidden.to(lh["a"].dtype) @ lh["a"], lh["b"]) * lora_scale
     return logits
+
+
+def forward_logits(
+    params: Params,
+    config: Qwen2Config,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    *,
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+) -> torch.Tensor:
+    """Token ids (B, S) -> full-sequence fp32 logits (B, S, V), the LoRA on
+    the decoder and the LM head. For checks and small inputs: scoring runs
+    the LM head on its label window only."""
+    hidden = forward_hidden(params, config, embed_tokens(params, input_ids), attention_mask,
+                            position_ids, lora=lora, lora_scale=lora_scale)
+    return lm_logits(params, hidden, config, lora=lora, lora_scale=lora_scale)

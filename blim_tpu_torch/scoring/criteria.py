@@ -3,7 +3,9 @@ blim_tpu/scoring/criteria.py).
 
 VTG eval criterion: the negated mean per-token cross-entropy over labeled
 tokens. The LM head runs only on scored positions, and the fused CE streams
-the vocabulary in chunks so the (rows, V) logits are never materialized.
+the vocabulary in chunks so the (rows, V) logits are never materialized;
+`vtg_likelihood` on `chunked_window_logits` is the same score through the
+full window logits.
 TVG: per-clip classification of the true video against the video
 vocabulary through the fp32 `visual_head`. Training losses are the
 batch-mean variants.
@@ -29,6 +31,14 @@ def token_ce_from_logits(logits: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     target = logits.gather(-1, safe[..., None])[..., 0]
     return torch.where(valid, logz - target, torch.zeros_like(logz)), valid
+
+
+def vtg_likelihood(window_logits: torch.Tensor, window_labels: torch.Tensor) -> torch.Tensor:
+    """Per-row score = -(sum CE / #labeled) over the label window, from its
+    logits: window_logits[b, i] predicts window_labels[b, i] (the shift is in
+    the window)."""
+    ce, valid = token_ce_from_logits(window_logits, window_labels)
+    return -(ce.sum(dim=-1) / valid.sum(dim=-1).clamp(min=1))
 
 
 def vtg_train_loss(window_logits: torch.Tensor, window_labels: torch.Tensor) -> torch.Tensor:
@@ -62,6 +72,15 @@ def tvg_likelihood(clip_logits: torch.Tensor, video_label: torch.Tensor) -> torc
 def tvg_train_loss(clip_logits: torch.Tensor, video_label: torch.Tensor) -> torch.Tensor:
     """Scalar batch-mean CE of the true video over every clip."""
     return _clip_ce(clip_logits, video_label).mean()
+
+
+def chunked_window_logits(hidden_window: torch.Tensor,   # (B, W, D)
+                          lm_kernel: torch.Tensor,       # (D, V)
+                          chunk: int = 32768) -> torch.Tensor:
+    """The LM head on a scoring window, (B, W, V) logits in fp32 (one
+    product; `chunk` is kept for the original's signature). ce_from_hidden
+    computes the same CE without the full logits."""
+    return matmul_f32(hidden_window, lm_kernel)
 
 
 def ce_from_hidden(

@@ -1,5 +1,6 @@
-"""Score fusion: CPN debiasing and the BLiM ensemble (copy of
-blim_tpu/scoring/fusion.py without the grid-search helpers).
+"""Score fusion: CPN debiasing, the BLiM ensemble and the grid searches of
+its weights (copy of blim_tpu/scoring/fusion.py; `calculate_score` and
+`calculate_cpn_score` are its text byte for byte).
 
   cpn_candidate = candidate_likelihood - alpha * candidate_prior
   blim          = c[dir] * query_likelihood + (1 - c[dir]) * cpn_candidate
@@ -48,6 +49,38 @@ def blim_ensemble(
     blim_t2v = c[2] * blim_t2v + (1 - c[2]) * t2v["internvideo2"]
     blim_v2t = c[3] * blim_v2t + (1 - c[3]) * v2t["internvideo2"]
     return cpn_t2v, cpn_v2t, blim_t2v, blim_v2t
+
+
+def calculate_score(t2v_1, v2t_1, t2v_2, v2t_2, t2v_ids, v2t_ids):
+    """Grid-search the convex blend weight over c in linspace(0,1,11),
+    maximizing R@1 per direction (reference: training_utils.py:106-121)."""
+    best_v2t, v2t_c = 0.0, 0.0
+    best_t2v, t2v_c = 0.0, 0.0
+    for c in np.linspace(0, 1, 11):
+        res = get_recall(c * t2v_1 + (1 - c) * t2v_2, c * v2t_1 + (1 - c) * v2t_2, t2v_ids, v2t_ids)
+        if best_v2t < res["v2t_r1"]:
+            best_v2t, v2t_c = res["v2t_r1"], round(float(c), 1)
+        if best_t2v < res["t2v_r1"]:
+            best_t2v, t2v_c = res["t2v_r1"], round(float(c), 1)
+    return (
+        t2v_c * t2v_1 + (1 - t2v_c) * t2v_2,
+        v2t_c * v2t_1 + (1 - v2t_c) * v2t_2,
+        t2v_c,
+        v2t_c,
+    )
+
+
+def calculate_cpn_score(t2v, v2t, t2v_prior, v2t_prior, t2v_ids, v2t_ids):
+    """Grid-search CPN strength alpha (reference: training_utils.py:123-138)."""
+    best_v2t, v2t_c = 0.0, 0.0
+    best_t2v, t2v_c = 0.0, 0.0
+    for c in np.linspace(0, 1, 11):
+        res = get_recall(t2v - c * t2v_prior, v2t - c * v2t_prior, t2v_ids, v2t_ids)
+        if best_v2t < res["v2t_r1"]:
+            best_v2t, v2t_c = res["v2t_r1"], round(float(c), 1)
+        if best_t2v < res["t2v_r1"]:
+            best_t2v, t2v_c = res["t2v_r1"], round(float(c), 1)
+    return t2v - t2v_c * t2v_prior, v2t - v2t_c * v2t_prior, t2v_c, v2t_c
 
 
 def all_scoring_results(

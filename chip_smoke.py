@@ -150,6 +150,31 @@ Phases, one line each (all numbers beside the card's name and power limit):
               B1 launches each; the sliding window (WINDOW) on the card,
               forward and backward, against the CPU plain version; and, in
               phase 11's fine-tuned eval, --profile_dir's trace.
+ 15. parity   (run after phase 14, on phase 3's 7B and phase 5's LoRA tree)
+              qwen2.forward_logits at full width and depth on 2 x PARITY_TOKENS
+              text tokens, one row right-padded, through B1 (28 launches)
+              against the same call through the plain attention, held on the
+              rows' VTG likelihood over a label window within PACKED_TOL (not on
+              logits: a position fault hides under the bf16 hidden-state gap);
+              the two window-CE routes (vtg_likelihood of chunked_window_logits
+              against the fused vtg_likelihood_from_hidden) on the same hidden
+              within WINDOW_CE_TOL; the LoRA tree merged into a copy of the
+              attention kernels, lm_head and projector (lora.merge_lora) scoring
+              MERGE_ROWS VTG rows with lora=None against the unmerged tree with
+              the LoRA applied, within MERGE_TOL, and a merge planted without
+              its scale must exceed it (a merge with the layers' factors in
+              reverse order is printed beside); the same comparison on an fp32
+              copy of the 7B through the plain attention, within MERGE_F32_TOL
+              (the witness that the bf16 gap is rounding, not the merge), the
+              scale left out above it; then scripts/parity_torch.py
+              --synthetic --device cuda in a subprocess (head dim 128, so B1,
+              B1-lse, B3 and B4 run): exit 0, no FAIL, step 5 PASS, step 2 PASS
+              or SKIP (transformers absent), every one of those kernels
+              launched; last, B1-lse, B3 and B4 at that harness's train shapes
+              (2 q heads on 1 K/V head: B4's cluster of 2), on the masks one
+              of its train steps gives them (recorded in this process), with
+              unit-normal q, k, v and dO, against their plain versions at
+              ATTN_ATOL / LSE_TOL / GRAD_TOL.
 Then the whole script's time, one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -183,6 +208,21 @@ GRAD_TOL = 3e-2      # |kernel - plain| dq, dk, dv over max|plain|: the kernels
                      # and write bf16; the plain version keeps fp32 to the end
 PACKED_TOL = 5e-2    # max |packed - naive| on per-caption mean CE (~12) after 28
                      # bf16 layers computed in a different order
+WINDOW_CE_TOL = 1e-3 # max |vtg_likelihood(chunked_window_logits(h)) - vtg_likelihood_from_hidden(h)|
+                     # (phase 15): the same bf16 products with fp32 sums, the logsumexp
+                     # over the vocabulary in one piece against 16384-wide chunks; ~12
+MERGE_TOL = PACKED_TOL   # max |merged LoRA - applied LoRA| VTG caption score (phase 15): the
+                     # merged kernels round W + scale A B to bf16 once, the applied LoRA
+                     # adds the fp32 delta's bf16 product to the bf16 base product
+PARITY_TOKENS = 64   # phase 15's forward_logits check: 2 rows of text tokens, the second
+PARITY_REAL = 40     # right-padded after PARITY_REAL; scored over a window inside both
+PARITY_WINDOW = (8, 32)   # rows' real tokens: (start, length)
+MERGE_F32_TOL = 1e-3 # the same gap with the 7B, the LoRA and the merge in fp32 through the
+                     # plain attention (phase 15): fp32 rounding only, so a merge that is
+                     # algebraically wrong anywhere shows here far above it
+MERGE_ROWS = 8       # VTG rows scored on the merged tree and with the LoRA applied
+MERGE_DECODE_TOKENS = 16  # greedy tokens timed on the merged tree and with the LoRA applied
+PARITY_SCRIPT_TIMEOUT_S = 420   # scripts/parity_torch.py --synthetic on the card
 TVG_TOL = 1.5e-2     # max |packed - naive| TVG score and prior (per-clip mean CE
                      # over the vocabulary, ~log ITEMS) on 8 pairs: above the
                      # error of a right port, below what a planted segment or
@@ -1534,6 +1574,332 @@ def phase_dormant(st, card):
     print(f"[time] phase 14 (dormant) took {time.time() - t0:.1f}s", flush=True)
     return dict(pdrop_launches=drop_counts["flash_fwd"] + att_counts["flash_fwd"]
                 + keep_counts["flash_fwd"])
+
+
+def phase_parity(st, fine, card):
+    """Phase 15: the last public functions at the 7B's width on phase 3's
+    weights and phase 5's LoRA tree, and the port's parity harness on its
+    synthetic checkpoint. Returns the phase's launch counts."""
+    import torch
+
+    from blim_tpu_torch.adapters import lora as lora_lib
+    from blim_tpu_torch.engine.rerank import CaptionBank
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import generation, qwen2
+    from blim_tpu_torch.models import videochat_flash as vcf
+    from blim_tpu_torch.scoring import criteria
+
+    t0 = time.time()
+    cfg, params, tok, layout = st["flow"]
+    llm, layers = params["llm"], cfg.llm.num_hidden_layers
+    none = {k: 0 for k in fa.counts()}
+
+    def plain_attention(q, k, v, *, key_mask=None, query_mask=None, causal=True, scale=None,
+                        window=None):
+        return reference_attention(q, k, v, key_mask, query_mask, causal, scale, window)
+
+    def counted(fn, plain=False):
+        mha = qwen2.multi_head_attention
+        if plain:
+            qwen2.multi_head_attention = plain_attention
+        fa.reset_counts()
+        try:
+            with torch.no_grad():
+                out = fn()
+            torch.cuda.synchronize()
+        finally:
+            qwen2.multi_head_attention = mha
+        return out, fa.counts()
+
+    # (a) forward_logits through B1 against the plain attention, on scores
+    r = np.random.default_rng((SEED, 15))
+    ids = torch.from_numpy(r.integers(0, 151643, (2, PARITY_TOKENS))).cuda()
+    mask = torch.ones((2, PARITY_TOKENS), dtype=torch.int32, device="cuda")
+    mask[1, PARITY_REAL:] = 0
+    ws, wl = PARITY_WINDOW
+    labels = ids[:, ws + 1: ws + wl + 1]
+
+    def window_scores(logits):
+        return criteria.vtg_likelihood(logits[:, ws: ws + wl], labels)
+
+    logits, c_b1 = counted(lambda: qwen2.forward_logits(llm, cfg.llm, ids, mask))
+    logits_plain, c_plain = counted(lambda: qwen2.forward_logits(llm, cfg.llm, ids, mask),
+                                    plain=True)
+    s_b1, s_plain = window_scores(logits), window_scores(logits_plain)
+    gap_logits = (s_b1 - s_plain).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits, logits_plain
+    print(f"[parity] forward_logits at {layers} layers on (2, {PARITY_TOKENS}) text tokens (row "
+          f"2 right-padded after {PARITY_REAL}), logits {shape} fp32 "
+          f"{'finite' if finite else 'NOT FINITE'}: per-row VTG likelihood over positions "
+          f"[{ws}, {ws + wl}) through B1 vs the plain attention max|d| {gap_logits:.3e} (tol "
+          f"{PACKED_TOL}; scores {s_b1.tolist()}); launches B1 {c_b1}, plain {c_plain} [{card}]",
+          flush=True)
+    if c_b1 != dict(none, flash_fwd=layers) or c_plain != none:
+        fail(f"forward_logits launches {c_b1} (expected {layers} B1) / plain {c_plain}")
+    if not finite or shape != (2, PARITY_TOKENS, cfg.llm.vocab_size) or gap_logits > PACKED_TOL:
+        fail("forward_logits through B1 disagrees with the plain attention")
+
+    # (b) the two window-CE routes on one hidden
+    hidden, c_hidden = counted(lambda: qwen2.forward_hidden(
+        llm, cfg.llm, qwen2.embed_tokens(llm, ids), mask))
+    win = hidden[:, ws: ws + wl]
+    kernel = qwen2.lm_head_kernel(llm)
+    with torch.no_grad():
+        unfused = criteria.vtg_likelihood(criteria.chunked_window_logits(win, kernel), labels)
+        fused = criteria.vtg_likelihood_from_hidden(win, kernel, labels)
+    gap_ce = (unfused - fused).abs().max().item()
+    print(f"[parity] window CE on the same hidden (2 x {wl} positions, V {cfg.llm.vocab_size}): "
+          f"vtg_likelihood(chunked_window_logits) vs vtg_likelihood_from_hidden max|d| "
+          f"{gap_ce:.3e} (tol {WINDOW_CE_TOL}); scores {fused.tolist()} [{card}]", flush=True)
+    if gap_ce > WINDOW_CE_TOL or not torch.isfinite(fused).all():
+        fail(f"the two window-CE routes disagree by {gap_ce:.3e}")
+    del hidden, win
+
+    # (c) the LoRA merged into the weights against the LoRA applied
+    lora, scale = fine["ft"]["lora"], fine["ft"]["lora_scale"]
+    bank = CaptionBank.build_vtg(st["inputs"].captions[:MERGE_ROWS], tok, "MSRVTT", layout)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    batch = {k: dev(getattr(bank, k)) for k in ("input_ids", "attention_mask", "cpn_mask",
+                                                  "window_labels")}
+    batch["video"] = dev(st["inputs"].features[:MERGE_ROWS]).to(
+        llm["embed_tokens"]["embedding"].dtype)
+    vs, (lws, lwl) = layout.video_start, layout.label_window
+
+    def vtg(p, lo=None):
+        return counted(lambda: vcf.score_vtg(p, cfg, batch, vs, lws, lwl, lora=lo,
+                                             lora_scale=scale))
+
+    torch.cuda.reset_peak_memory_stats()
+    applied, c_applied = vtg(params, lora)
+    base = vtg(params)[0]
+    t_merge = time.time()
+    merged_tree = lora_lib.merge_lora(params, lora, scale)
+    torch.cuda.synchronize()
+    t_merge = time.time() - t_merge
+    merged, c_merged = vtg(merged_tree)
+
+    def decode_ms(p, lo=None):
+        """ms a greedy decode step from the real row of (a), batch 1 (no EOS)."""
+        emb = qwen2.embed_tokens(p["llm"], ids[:1])
+
+        def run(n):
+            torch.cuda.synchronize()
+            t = time.time()
+            with torch.no_grad():
+                generation.generate_tokens(p["llm"], cfg.llm, emb, mask[:1], n, [-1], lora=lo,
+                                           lora_scale=scale)
+            torch.cuda.synchronize()
+            return time.time() - t
+        run(2)
+        return (run(MERGE_DECODE_TOKENS + 1) - run(1)) / MERGE_DECODE_TOKENS * 1e3
+
+    decode = {"merged": decode_ms(merged_tree), "applied": decode_ms(params, lora["llm"])}
+    del merged_tree
+    no_scale = lora_lib.merge_lora(params, lora, 1.0)
+    fault_scale = vtg(no_scale)[0]
+    del no_scale
+    flipped = dict(lora, llm=dict(lora["llm"], layers={
+        n: {k: f.flip(0) for k, f in ab.items()} for n, ab in lora["llm"]["layers"].items()}))
+    reordered = lora_lib.merge_lora(params, flipped, scale)
+    fault_order = vtg(reordered)[0]
+    del reordered, flipped
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gap = lambda a: (a - applied).abs().max().item()  # noqa: E731
+    gaps = {"merged": gap(merged), "no LoRA": gap(base), "scale left out": gap(fault_scale),
+            "layers reversed": gap(fault_order)}
+    mean_gap = (merged - applied).abs().mean().item()
+    print(f"[parity] LoRA merged into q/k/v/o ({layers} layers), lm_head and the projector in "
+          f"{t_merge:.2f}s, peak {peak:.2f} GiB: {MERGE_ROWS} VTG rows' caption scores (~"
+          f"{applied.mean().item():.2f}) max|d| against the LoRA applied: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (tol {MERGE_TOL}; merged mean |d| {mean_gap:.3e}); launches applied "
+          f"{c_applied['flash_fwd']}, merged {c_merged['flash_fwd']}; greedy decode (batch 1, "
+          f"{PARITY_TOKENS}-token prompt) {decode['merged']:.2f} ms/token merged against "
+          f"{decode['applied']:.2f} with the LoRA applied (phase 12 decodes without a LoRA) "
+          f"[{card}]", flush=True)
+    if gaps["merged"] > MERGE_TOL or not torch.isfinite(merged).all():
+        fail(f"the merged LoRA scores disagree with the applied LoRA's: {gaps['merged']:.3e}")
+    if gaps["scale left out"] <= MERGE_TOL:
+        fail(f"a merge planted without its scale moved the scores by {gaps['scale left out']:.3e},"
+             f" not above {MERGE_TOL}: the check cannot see it")
+    if c_merged != dict(none, flash_fwd=layers) or c_applied != c_merged:
+        fail(f"merged / applied scoring launches {c_merged} / {c_applied}")
+
+    # (c') the same merge in fp32 through the plain attention: what is left of
+    # the bf16 gap once nothing is rounded to bf16
+    f32 = lambda t: _tree_map(lambda a: a.float() if a.is_floating_point() else a, t)  # noqa: E731
+    t_f32 = time.time()
+    params32, lora32 = f32(params), f32(lora)
+    batch32 = dict(batch, video=batch["video"].float())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def vtg32(p, lo=None):
+            got, c = counted(lambda: vcf.score_vtg(p, cfg, batch32, vs, lws, lwl, lora=lo,
+                                                   lora_scale=scale), plain=True)
+            if c != none:
+                fail(f"the fp32 scoring through the plain attention launched {c}")
+            return got
+        applied32 = vtg32(params32, lora32)
+        merged32 = vtg32(lora_lib.merge_lora(params32, lora32, scale))
+        fault32 = vtg32(lora_lib.merge_lora(params32, lora32, 1.0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params32, lora32
+    torch.cuda.empty_cache()
+    gap32 = (merged32 - applied32).abs().max().item()
+    fault_gap32 = (fault32 - applied32).abs().max().item()
+    bf16_vs_f32 = (applied - applied32).abs().max().item()
+    print(f"[parity] the same in fp32 (the 7B, the LoRA and the merge; plain attention, TF32 "
+          f"off) in {time.time() - t_f32:.1f}s: merged vs applied max|d| {gap32:.3e} (tol "
+          f"{MERGE_F32_TOL}), scale left out {fault_gap32:.3e}; bf16 applied vs fp32 applied "
+          f"{bf16_vs_f32:.3e} [{card}]", flush=True)
+    if gap32 > MERGE_F32_TOL or not torch.isfinite(merged32).all():
+        fail(f"the fp32 merged LoRA scores disagree with the applied LoRA's: {gap32:.3e}")
+    if fault_gap32 <= MERGE_F32_TOL:
+        fail(f"an fp32 merge planted without its scale moved the scores by {fault_gap32:.3e},"
+             f" not above {MERGE_F32_TOL}: the check cannot see it")
+
+    # (d) the port's parity harness on its synthetic checkpoint, on the card
+    t_script = time.time()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "parity_torch.py"),
+                           "--synthetic", "--device", "cuda"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=PARITY_SCRIPT_TIMEOUT_S)
+    t_script = time.time() - t_script
+    out = proc.stdout
+    summary = {line.split(None, 1)[1]: line.split()[0] for line in
+               out.split("== parity summary ==")[-1].splitlines()
+               if line.startswith("  ") and len(line.split()) > 1}
+    launch_lines = [l for l in out.splitlines() if l.startswith("launches: ")]
+    script = json.loads(launch_lines[-1][len("launches: "):]) if launch_lines else {}
+    for line in out.splitlines():
+        if line.startswith("[") and "] " in line[:8]:
+            print(f"[parity]   {line}", flush=True)
+    print(f"[parity] scripts/parity_torch.py --synthetic --device cuda: exit {proc.returncode} "
+          f"in {t_script:.1f}s, steps {summary}, launches {script} [{card}]", flush=True)
+    if proc.returncode != 0 or "FAIL" in summary.values():
+        fail(f"parity_torch.py --synthetic failed (exit {proc.returncode}):\n"
+             f"{proc.stderr[-3000:]}\n{out[-3000:]}")
+    if summary.get("5 train trajectory") != "PASS" or summary.get("2 logit parity") not in (
+            "PASS", "SKIP"):
+        fail(f"parity_torch.py --synthetic: steps {summary}")
+    if not all(script.get(k, 0) > 0 for k in ("flash_fwd", "flash_fwd_lse", "flash_dq",
+                                               "flash_dkv")):
+        fail(f"parity_torch.py --synthetic on the card did not launch every kernel: {script}")
+
+    # (e) B1-lse, B3 and B4 at the harness's own train shapes and masks
+    train_errs = hold_parity_train_kernels(synthetic_train_calls(), card)
+    print(f"[time] phase 15 (parity) took {time.time() - t0:.1f}s [{card}]", flush=True)
+    return dict(forward_logits=c_b1["flash_fwd"] + c_hidden["flash_fwd"],
+                merged_lora=c_merged["flash_fwd"] + c_applied["flash_fwd"], script=script,
+                decode_ms=decode, train_errs=train_errs)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def synthetic_train_calls(device="cuda"):
+    """The distinct B1-lse calls (q and k shapes, key and query masks, causal,
+    scale) of one step of scripts/parity_torch.py's step 5 on its synthetic
+    checkpoint, run in this process with a recording wrapper around the
+    wrapper. The harness's report lines are printed, prefixed."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    spec = importlib.util.spec_from_file_location("parity_torch",
+                                                  ROOT / "scripts" / "parity_torch.py")
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    calls, lse = {}, fa.flash_attention_lse
+
+    def recording(q, k, v, *, key_mask=None, query_mask=None, causal=True, scale=None):
+        masks = tuple(None if m is None else m.detach().clone() for m in (key_mask, query_mask))
+        key = (tuple(q.shape), tuple(k.shape), causal, scale) + tuple(
+            None if m is None else m.cpu().numpy().tobytes() for m in masks)
+        calls.setdefault(key, (tuple(q.shape), tuple(k.shape), *masks, causal, scale))
+        return lse(q, k, v, key_mask=key_mask, query_mask=query_mask, causal=causal, scale=scale)
+
+    out = io.StringIO()
+    fa.flash_attention_lse = recording
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = harness.main(["--synthetic", "--device", device, "--steps", "5",
+                               "--train_steps", "1"])
+    finally:
+        fa.flash_attention_lse = lse
+    for line in out.getvalue().splitlines():
+        if line.startswith("["):
+            print(f"[parity]   {line}", flush=True)
+    if rc != 0 or not calls:
+        fail(f"parity_torch.py step 5 in this process: exit {rc}, {len(calls)} attention calls"
+             f" recorded:\n{out.getvalue()[-3000:]}")
+    return list(calls.values())
+
+
+def hold_parity_train_kernels(calls, card):
+    """B1-lse, then B3 and B4 on the plain forward's O and lse, against their
+    plain versions on unit-normal bf16 q, k, v and dO at each recorded call's
+    shapes and masks, as phase 6 holds them at the 7B's. Returns the max
+    |kernel - plain| of each kernel."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    errs = {"flash_fwd_lse": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for qs, ks, km, qm, causal, scale in calls:
+        b, s, hq, d = qs
+        rnd = lambda shape: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
+                                        dtype=torch.bfloat16)
+        q, k, v, dout = rnd(qs), rnd(ks), rnd(ks), rnd(qs)
+        km, qm = (None if m is None else m.cuda() for m in (km, qm))
+        out, lse = fa.flash_attention_lse(q, k, v, key_mask=km, query_mask=qm, causal=causal,
+                                          scale=scale)
+        ref, ref_lse = fa.reference_attention_lse(q, k, v, km, qm, causal, scale)
+        # lse rows that mean something: the query emits and sees a key
+        keys = (torch.ones((b, s), device="cuda") if km is None else km.float())
+        seen = keys.cumsum(1) > 0 if causal else keys.sum(1, keepdim=True).expand(b, s) > 0
+        rows = (seen if qm is None else seen & qm.bool())[:, None, :].expand(b, hq, s)
+        diff = (out.float() - ref.float()).abs()
+        excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+        err_lse = (lse - ref_lse)[rows].abs().max().item()
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, km, qm, ref, ref_lse, dout, causal,
+                                                 scale)
+        want = fa.reference_attention_backward(q, k, v, km, qm, ref, ref_lse, dout, causal,
+                                               scale)
+        gerr = {g: ((got.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+                for g, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)) \
+            and bool(torch.isfinite(lse[rows]).all())
+        masks = ", ".join(f"{n} {'none' if m is None else f'{int(m.sum())}/{m.numel()} ones'}"
+                          for n, m in (("key mask", km), ("query mask", qm)))
+        print(f"[parity] harness train shape q {qs}, k/v {ks} ({masks}, causal {causal}): "
+              f"B1-lse out max|d| {diff.max().item():.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|),"
+              f" lse {err_lse:.3e} (tol {LSE_TOL}); " + ", ".join(
+                  f"{g} {e:.3e} (max|plain| {mx:.3e})" for g, (e, mx) in gerr.items())
+              + f" (tol {GRAD_TOL} max|plain|) [{card}]", flush=True)
+        if not finite:
+            fail(f"harness train shape {qs}: non-finite kernel output")
+        if excess > ATTN_ATOL or err_lse > LSE_TOL:
+            fail(f"flash_fwd_lse at the harness train shape {qs}: kernel and plain disagree")
+        for g, (e, mx) in gerr.items():
+            if e > GRAD_TOL * mx:
+                fail(f"{g} at the harness train shape {qs}: |kernel - plain| {e:.3e} > "
+                     f"{GRAD_TOL} x {mx:.3e}")
+        errs["flash_fwd_lse"] = max(errs["flash_fwd_lse"], diff.max().item(), err_lse)
+        errs["flash_dq"] = max(errs["flash_dq"], gerr["dq"][0])
+        errs["flash_dkv"] = max(errs["flash_dkv"], gerr["dk"][0], gerr["dv"][0])
+    return errs
 
 
 def _named_leaves(tree, prefix=""):
@@ -3446,6 +3812,7 @@ def main():
     print(f"[time] phases 6-8 (train kernels, train, gradcheck) took {time.time() - t0:.1f}s",
           flush=True)
     dormant = phase_dormant(st, card)
+    parity = phase_parity(st, fine, card)
     dp_refs = dp_yardsticks(st, fine)
     b1_launches = st["launches"]
     del st, fine                # the 7B weights: phases 9-10 measure their own peak memory
@@ -3467,14 +3834,20 @@ def main():
                 "naive_launches": naive["launches"], "dp_finetuned_launches_per_rank": dp_b1,
                 "rectangle_launches": rect["launches"],
                 "rectangle_tvg_prefix_forwards": rect["tvg_forwards"],
-                "rectangle_tvg": rect["b1"], "pdrop_launches": dormant["pdrop_launches"]}]
+                "rectangle_tvg": rect["b1"], "pdrop_launches": dormant["pdrop_launches"],
+                "parity_launches": {"forward_logits": parity["forward_logits"],
+                                    "merged_lora": parity["merged_lora"],
+                                    "parity_script": parity["script"]["flash_fwd"]}}]
     for name, source, line in (("flash_fwd_lse", "flash_fwd.cu", "121"),
                                ("flash_dq", "flash_bwd.cu", "195"),
                                ("flash_dkv", "flash_bwd.cu", "252")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": ref + line, "launches": train["counts"][name],
                         **train_records[name],
-                        "dp_step_launches_per_rank": [c[name] for c in dp_train]})
+                        "dp_step_launches_per_rank": [c[name] for c in dp_train],
+                        "parity_script_launches": parity["script"][name],
+                        "parity_train_shapes_max_abs_err": parity["train_errs"][name]})
+        kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], parity["train_errs"][name])
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
                     "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
                     "chat": chat_b2})

@@ -68,7 +68,8 @@ def test_vision_config_copy_matches(kw):
 
 def test_constants_match():
     for name in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN", "IMAGE_TOKEN_ID",
-                 "IM_START_TOKEN_ID", "QWEN2_PAD_TOKEN_ID"):
+                 "IM_START_TOKEN_ID", "QWEN2_PAD_TOKEN_ID", "DEFAULT_IMAGE_PATCH_TOKEN",
+                 "DEFAULT_IM_START_TOKEN", "DEFAULT_IM_END_TOKEN"):
         assert getattr(tconst, name) == getattr(jconst, name), name
 
 
@@ -593,3 +594,88 @@ def test_feature_pack_source_is_a_byte_copy():
     repo = Path(__file__).resolve().parents[1]
     copy = repo / "blim_tpu_torch" / "data" / "csrc" / "feature_pack.cpp"
     assert copy.read_bytes() == (repo / "native" / "feature_pack.cpp").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the last public surface's copies: the fusion grid searches, the flat prompt
+# example functions and splice, the FLOP accounting
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["calculate_score", "calculate_cpn_score"])
+def test_grid_search_source_is_a_byte_copy(name):
+    import inspect
+
+    assert inspect.getsource(getattr(tfusion, name)) == inspect.getsource(getattr(jfusion, name))
+
+
+@pytest.mark.parametrize("name", ["build_vtg_example", "build_tvg_example", "splice_flat_example"])
+def test_flat_example_source_is_a_byte_copy(name):
+    import inspect
+
+    assert inspect.getsource(getattr(tprompts, name)) == inspect.getsource(getattr(jprompts, name))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_grid_searches_copy_match(seed):
+    """Seeded matrices kept off an exact 0.0 score (get_recall reads one as
+    a skipped direction): the same blends and the same chosen weights."""
+    n = 16
+    rng = np.random.default_rng(seed)
+    mat = lambda: rng.standard_normal((n, n)) + 0.01  # noqa: E731
+    ids = {i: i for i in range(n)}
+    args = (mat(), mat(), mat(), mat(), ids, ids)
+    assert all((a != 0.0).all() for a in args[:4])
+    for name in ("calculate_score", "calculate_cpn_score"):
+        got = getattr(tfusion, name)(*args)
+        want = getattr(jfusion, name)(*args)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2:] == want[2:], name
+        assert all(c in [round(x, 1) for x in np.linspace(0, 1, 11)] for c in got[2:])
+
+
+def test_flops_module_is_a_copy_but_for_the_peak_lookup():
+    from pathlib import Path
+
+    from blim_tpu.utils import flops as jflops
+    from blim_tpu_torch.utils import flops as tflops
+
+    repo = Path(__file__).resolve().parents[1]
+
+    def body(path):
+        text = path.read_text()
+        return text[text.index("def decoder_matmul_flops_per_token("):
+                    text.index("def peak_flops_per_chip(")]
+
+    copy = body(repo / "blim_tpu_torch" / "utils" / "flops.py")
+    assert len(copy) > 6000 and copy == body(repo / "blim_tpu" / "utils" / "flops.py")
+    assert tflops.PEAK_BF16_FLOPS == jflops.PEAK_BF16_FLOPS
+    cfg, jcfg = tconfig.ModelConfig(), jconfig.ModelConfig()
+    lens = np.array([5, 17, 33, 1])
+    for fn, a in (("full_forward_flops", (4, 448, 34)), ("prefix_forward_flops", (8, 341)),
+                  ("suffix_forward_flops", (16, 24, 341, 23)),
+                  ("packed_suffix_forward_flops", (3, 128, 341)),
+                  ("packed_prefix_kv_flops", (2, 512)), ("flat_query_suffix_flops", (9, 4, 512)),
+                  ("suffix_forward_flops_varlen", (lens, 341)),
+                  ("prefix_forward_flops_varlen", (lens,))):
+        assert getattr(tflops, fn)(cfg.llm, *a) == getattr(jflops, fn)(jcfg.llm, *a), fn
+    assert tflops.tvg_head_flops(cfg, 28.0, 64) == jflops.tvg_head_flops(jcfg, 28.0, 64)
+    kw = dict(batch=4, vtg_seq=448, vtg_lm_positions=34, tvg_seq=256, vocab_videos=64, lora_r=8,
+              vtg_video_tokens=256, tvg_video_tokens=4)
+    assert (tflops.train_step_executed_flops(cfg, **kw)
+            == jflops.train_step_executed_flops(jcfg, **kw))
+
+
+def test_peak_flops_reads_a_torch_device(monkeypatch):
+    import torch
+
+    from blim_tpu_torch.utils import flops as tflops
+
+    assert tflops.peak_flops_per_chip("cpu") is None
+    assert tflops.peak_flops_per_chip(torch.device("cpu")) is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name, want in (("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 PCIe", None),
+                       ("NVIDIA A100-SXM4-80GB", None)):
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None, _n=name: _n)
+        assert tflops.peak_flops_per_chip("cuda") == want, name
+        assert tflops.peak_flops_per_chip(torch.device("cuda", 0)) == want, name

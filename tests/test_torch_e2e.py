@@ -141,7 +141,8 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((REPO / "blim_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py",
+        REPO / "scripts" / "parity_torch.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("adapters/lora", "checkpoints/convert", "checkpoints/safetensors_io",
@@ -153,7 +154,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "models/videochat_flash", "models/pyramid_drop", "pipelines/configs",
                    "pipelines/extract", "pipelines/main", "scoring/criteria",
                    "scoring/alt_metrics", "scoring/recall", "utils/distributed",
-                   "utils/logging", "utils/lr_decay", "utils/profiling"):
+                   "utils/logging", "utils/lr_decay", "utils/profiling", "utils/flops",
+                   "scoring/fusion", "core/constants"):
         assert f"blim_tpu_torch/{module}.py" in names, module
     for f in files:
         for mod in _imports(f):

@@ -8,8 +8,9 @@ made non-zero so the adapters act) bridged from the JAX trees; matrices
 within atol 1e-4 / rtol 1e-4 (fp32 through two layers and a 152k-way CE),
 fill cells exactly -100, recall tables equal.
 
-Also: no kernel launches on the CPU, and a bank uploaded before the LoRA
-changed refuses to score."""
+Also: no kernel launches on the CPU, a bank uploaded before the LoRA
+changed refuses to score, and each pass adds to the engine's `flops` and
+`useful_flops` what the JAX engine's pass adds (`trace_flops`)."""
 
 import numpy as np
 import pytest
@@ -56,6 +57,35 @@ V2T = ("v2t", "candidate_likelihood", "candidate_prior", "query_likelihood")
 T2V = ("t2v", "query_likelihood", "candidate_likelihood", "candidate_prior")
 SCORED = [(V2T[0], name) for name in V2T[1:]] + [(T2V[0], name) for name in T2V[1:]]
 MATRICES = SCORED + [("v2t", "internvideo2"), ("t2v", "internvideo2")]
+PASSES = ("score_pairs_vtg_packed", "compute_vtg_priors_packed", "score_pairs_tvg_packed",
+          "score_pairs_vtg_shared", "compute_vtg_priors", "score_pairs_tvg_shared",
+          "score_grid_vtg", "score_grid_tvg")
+
+
+def trace_flops(engine):
+    """Wrap every scoring pass of `engine` (either package's) to log (pass,
+    flops it added, useful_flops it added), each counted from zero so that
+    the order of the passes cannot round them. Returns the log."""
+    log = []
+    for name in PASSES:
+        def wrapped(*a, _name=name, _real=getattr(engine, name), **k):
+            f0, u0 = engine.flops, engine.useful_flops
+            engine.flops = engine.useful_flops = 0.0
+            out = _real(*a, **k)
+            log.append((_name, engine.flops, engine.useful_flops))
+            engine.flops, engine.useful_flops = f0 + engine.flops, u0 + engine.useful_flops
+            return out
+        setattr(engine, name, wrapped)
+    return log
+
+
+def assert_flops_match(got_log, want_log, got_engine, want_engine):
+    """The same passes, each adding the same dispatched and useful FLOPs."""
+    by_pass = lambda log: sorted(log, key=lambda r: r[0])  # noqa: E731  (stable)
+    assert by_pass(got_log) == by_pass(want_log)
+    assert len(got_log) > 0 and all(f > 0 and u > 0 for _, f, u in got_log)
+    assert got_engine.flops == pytest.approx(want_engine.flops, rel=1e-12)
+    assert got_engine.useful_flops == pytest.approx(want_engine.useful_flops, rel=1e-12)
 
 
 @pytest.fixture(scope="module")
@@ -77,6 +107,7 @@ def both(tokenizer):
     jengine = JaxRerankEngine(jp, jcfg, jvtg, jtvg, make_mesh(devices=jax.devices()[:1]),
                               lora=jax.tree_util.tree_map(jnp.asarray, lora_np),
                               lora_scale=SCALE)
+    jflops = trace_flops(jengine)
     jt2v, jv2t = jeval.evaluation(
         jengine, jeval.EvalInputs(CAPTIONS, np.arange(N), feats, t2v_iv2, v2t_iv2),
         tokenizer, "MSRVTT", topk=TOPK, cpn=True, has_tvg=True, verbose=False)
@@ -86,13 +117,15 @@ def both(tokenizer):
     ttvg = make_tvg_layout(ttok, tcfg.num_clips, max_caption_tokens=48)
     tengine = RerankEngine(tp, tcfg, tvtg, ttvg, lora=params_from_numpy(lora_np, device="cpu"),
                            lora_scale=SCALE, device="cpu")
+    tflops = trace_flops(tengine)
     tfa.reset_counts()
     inputs = teval.EvalInputs(CAPTIONS, np.arange(N), feats, t2v_iv2, v2t_iv2)
     tt2v, tv2t = teval.evaluation(tengine, inputs, ttok, "MSRVTT", topk=TOPK, cpn=True,
                                   has_tvg=True, verbose=False)
     return {"jax": {"t2v": jt2v, "v2t": jv2t}, "torch": {"t2v": tt2v, "v2t": tv2t},
             "v2t_iv2": v2t_iv2, "t2v_iv2": t2v_iv2, "counts": tfa.counts(),
-            "engine": tengine, "inputs": inputs, "tokenizer": ttok}
+            "engine": tengine, "inputs": inputs, "tokenizer": ttok,
+            "flops": (tflops, jflops, tengine, jengine)}
 
 
 @pytest.mark.parametrize("direction,name", MATRICES, ids=[f"{d}-{n}" for d, n in MATRICES])
@@ -126,6 +159,16 @@ def test_finetuned_recall_tables_match_jax(both, cpn):
     t = tfusion.all_scoring_results(both["torch"]["t2v"], both["torch"]["v2t"], *args)
     j = jfusion.all_scoring_results(both["jax"]["t2v"], both["jax"]["v2t"], *args)
     assert t == j
+
+
+def test_finetuned_flops_match_jax(both):
+    """Each packed pass (the VTG pass, the VTG priors, TVG with its prior
+    pass) adds JAX's dispatched and useful FLOPs, on the same step geometry."""
+    tlog, jlog, tengine, jengine = both["flops"]
+    assert {p for p, _, _ in tlog} == {"score_pairs_vtg_packed", "compute_vtg_priors_packed",
+                                       "score_pairs_tvg_packed"}
+    assert_flops_match(tlog, jlog, tengine, jengine)
+    assert tengine.useful_flops < tengine.flops
 
 
 def test_cpu_finetuned_flow_never_launches_a_kernel(both):

@@ -5,7 +5,8 @@ with non-zero B factors), every matrix within 1e-4 of JAX's naive
 evaluation, and of the port's packed evaluation within PACKED_TOL (3e-4,
 tests/test_torch_tvg.py's packed-vs-naive tolerance); the fill cells
 agree; pairs go 16 a step with the tail padded, the candidate grids with a
-second (prior) forward.
+second (prior) forward; each grid adds to the engine's `flops` and
+`useful_flops` what the JAX engine's grid adds.
 """
 
 import numpy as np
@@ -29,7 +30,8 @@ def naive(tokenizer):
     from blim_tpu.engine import evaluation as jeval
     from blim_tpu.engine.rerank import RerankEngine as JaxRerankEngine
     from blim_tpu.models import videochat_flash as jvcf
-    from test_torch_distributed import CAPS, _eval
+    from test_torch_distributed import CAPS, _engine, _eval
+    from test_torch_finetuned import trace_flops
     from test_torch_tvg import _lora_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -51,14 +53,18 @@ def naive(tokenizer):
             jp, jcfg, jvtg, jtvg, mesh,
             lora=jax.tree_util.tree_map(jnp.asarray, lora_np) if has_tvg else None,
             lora_scale=SCALE)
+        jlog = trace_flops(jengine)
         t2v, v2t = jeval.evaluation(
             jengine, jeval.EvalInputs(CAPTIONS, np.arange(N), feats, ev["t2v"], ev["v2t"]),
             tokenizer, "MSRVTT", topk=TOPK, cpn=True, has_tvg=has_tvg, verbose=False,
             shared_prefix=False)
         out[flow, "jax"] = {"t2v": t2v, "v2t": v2t}
         out[flow, "packed"], _ = _eval(inp, has_tvg)
-        out[flow, "naive"], engine = _eval(inp, has_tvg, shared_prefix=False)
+        engine, _ = _engine(inp, has_tvg)
+        tlog = trace_flops(engine)
+        out[flow, "naive"], engine = _eval(inp, has_tvg, shared_prefix=False, engine=engine)
         out[flow, "engine"] = engine
+        out[flow, "flops"] = (tlog, jlog, engine, jengine)
     return out
 
 
@@ -87,3 +93,14 @@ def test_naive_schedule_steps_and_forwards(naive, flow):
     assert engine.naive_forwards == (grids + priors) * steps_per_grid
     assert engine.prefix_forwards == engine.tvg_prefix_forwards == 0
     assert engine.pack_shards == []
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_naive_flops_match_jax(naive, flow):
+    """Each naive grid adds JAX's full-forward FLOPs a step (two with the
+    prior) and its useful FLOPs."""
+    from test_torch_finetuned import assert_flops_match
+
+    tlog, jlog, engine, jengine = naive[flow, "flops"]
+    assert [p for p, _, _ in tlog] == ["score_grid_vtg"] * 2 + ["score_grid_tvg"] * 2 * FLOWS[flow]
+    assert_flops_match(tlog, jlog, engine, jengine)

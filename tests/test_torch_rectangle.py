@@ -350,6 +350,7 @@ def rect(tokenizer):
     from blim_tpu.core.config import tiny_model_config as jax_tiny_config
     from blim_tpu.engine import evaluation as jeval
     from test_torch_distributed import _engine, _eval
+    from test_torch_finetuned import trace_flops
     from test_torch_tvg import _lora_numpy
 
     jcfg = jax_tiny_config(vocab_size=152064, num_clips=4)
@@ -370,6 +371,7 @@ def rect(tokenizer):
             jp, jcfg, jvtg, jtvg, mesh,
             lora=jax.tree_util.tree_map(jnp.asarray, lora_np) if has_tvg else None,
             lora_scale=SCALE, prior_batch=PRIOR_BATCH)
+        jlog = trace_flops(jengine)
         t2v, v2t = jeval.evaluation(
             jengine, jeval.EvalInputs(CAPTIONS, np.arange(N), feats, ev["t2v"], ev["v2t"]),
             tokenizer, "MSRVTT", topk=4, cpn=True, has_tvg=has_tvg, verbose=False,
@@ -378,6 +380,7 @@ def rect(tokenizer):
         out[flow, "packed"], _ = _eval(inp, has_tvg)
         engine, _ = _engine(inp, has_tvg)
         engine.prior_batch = PRIOR_BATCH
+        tlog = trace_flops(engine)
         calls = {}
         for name in ("_vtg_shared_step", "_tvg_shared_step", "_vtg_prior_step"):
             def count(*a, _name=name, _real=getattr(engine, name), **k):
@@ -386,6 +389,7 @@ def rect(tokenizer):
             setattr(engine, name, count)
         out[flow, "rect"], out[flow, "engine"] = _eval(inp, has_tvg, engine=engine, packed=False)
         out[flow, "calls"] = calls
+        out[flow, "flops"] = (tlog, jlog, out[flow, "engine"], jengine)
     out["v2t_iv2"], out["t2v_iv2"] = ev["v2t"], ev["t2v"]
     return out
 
@@ -428,3 +432,16 @@ def test_rectangle_evaluation_prefix_forwards(rect, flow):
     assert {s[0] for s in engine.pack_shards} == (
         {"vtg_shared", "tvg_shared"} if FLOWS[flow] else {"vtg_shared"})
     assert engine.tvg_prefix_forwards == engine.naive_forwards == 0
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_rectangle_flops_match_jax(rect, flow):
+    """Each rectangle pass (VTG groups, the VTG priors, the TVG groups with
+    their prior pass) adds JAX's dispatched and useful FLOPs."""
+    from test_torch_finetuned import assert_flops_match
+
+    tlog, jlog, engine, jengine = rect[flow, "flops"]
+    want = {"score_pairs_vtg_shared", "compute_vtg_priors"} | (
+        {"score_pairs_tvg_shared"} if FLOWS[flow] else set())
+    assert {p for p, _, _ in tlog} == want
+    assert_flops_match(tlog, jlog, engine, jengine)
