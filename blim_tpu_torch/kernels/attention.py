@@ -77,11 +77,13 @@ def multi_head_attention(
     requiring grad) goes through the differentiable flash attention: on CUDA
     the B1-lse forward and the B3/B4 backward kernels, on the CPU their
     plain versions inside the same autograd Function. A CUDA tensor at head
-    dim 64 with causal=False and no masks (the UMT ViT) goes to B2; at head
-    dim 64 the backward kernels do not exist yet, so such a tensor that
-    needs a gradient raises. Any other CUDA tensor goes to the inference
-    kernel B1, whatever its size (the JAX wrapper's small-problem gate does
-    not apply), which raises on a head dim other than 128.
+    dim 64 with causal=False and no masks (the UMT ViT) goes to B2, or, when
+    it needs a gradient, to the same Function's d = 64 kernels (B2-lse
+    forward, B3-d64 and B4-d64 backward); at head dim 64 with masks or
+    causal=True there are no kernels, and such a CUDA tensor raises. Any
+    other CUDA tensor goes to the inference kernel B1, whatever its size
+    (the JAX wrapper's small-problem gate does not apply), which raises on a
+    head dim other than 128.
 
     A sliding `window` (dormant in BLiM configs) runs the plain windowed
     attention as torch ops on any device, under autograd when the tensors
@@ -95,12 +97,15 @@ def multi_head_attention(
                                               or v.requires_grad)
     if q.device.type == "cpu" and not needs_grad:
         return reference_attention(q, k, v, key_mask, query_mask, causal, scale)
-    dense64 = q.shape[-1] == fa.DENSE_HEAD_DIM
+    dense64 = fa.kernel_head_dim(q, key_mask, query_mask, causal) == fa.DENSE_HEAD_DIM
     if needs_grad:
-        if dense64 and q.device.type != "cpu":
-            raise NotImplementedError("attention at head dim 64 has no backward kernels yet")
+        if q.shape[-1] == fa.DENSE_HEAD_DIM and not dense64 and q.device.type != "cpu":
+            raise ValueError(f"attention at head dim {q.shape[-1]} runs on the card only dense "
+                             f"and non-causal (the ViT's mode); got causal={causal}, key_mask "
+                             f"{'set' if key_mask is not None else 'None'}, query_mask "
+                             f"{'set' if query_mask is not None else 'None'}")
         return fa.FlashAttentionFunction.apply(q, k, v, key_mask, query_mask, causal, scale)
-    if dense64 and not causal and key_mask is None and query_mask is None:
+    if dense64:
         return fa.flash_attention_dense(q, k, v, scale=scale)
     return fa.flash_attention(q, k, v, key_mask=key_mask, query_mask=query_mask, causal=causal,
                               scale=scale)

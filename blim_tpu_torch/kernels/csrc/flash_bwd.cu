@@ -1,12 +1,18 @@
 // Flash-attention backward for Hopper (sm_90a): dq (flash_dq), and dk/dv
-// (flash_dkv), for the causal or full, masked or dense, GQA attention of
-// flash_fwd.cu at head dim 128. bf16 in, fp32 accumulate, bf16 out.
+// (flash_dkv), for the attention of flash_fwd.cu. One template over the
+// head dim: d = 128 (the 7B decoder: causal or full, masked or dense, GQA)
+// and d = 64 (the UMT ViT: dense, non-causal, one q head a K/V head only).
+// bf16 in, fp32 accumulate, bf16 out.
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_dq_kernel` (:195-249,
 // launched by `_flash_backward` -> pl.pallas_call :361-376) and
-// `_dkv_kernel` (:252-331, pl.pallas_call :391-412), which the LoRA train
-// step runs through `_vjp_bwd` (:442-446) for every attention call of the
-// 7B, in both the VTG and the TVG direction.
+// `_dkv_kernel` (:252-331, pl.pallas_call :391-412), run through `_vjp_bwd`
+// (:442-446) in two uses:
+//   * B3, B4 (d = 128): every attention call of the 7B in the LoRA train
+//     step, in both the VTG and the TVG direction;
+//   * B3-d64, B4-d64: every attention of the UMT ViT-L tower when the tower
+//     is differentiated (umt_vit.encode_clips under autograd), dense
+//     (:357-360, :378-383) and non-causal, 16 q heads on 16 K/V heads.
 //
 // Math, the same as the TPU kernels and the plain version
 // (kernels/flash_attention.py::reference_attention_backward). Inputs: q, k,
@@ -33,6 +39,12 @@
 // ~7.1 GFLOP or ~7.1 us. flash_dkv reads q, dO, k, v, lse, delta and writes
 // dk, dv: ~33.4 MB (~10.0 us) against 4 products, ~9.4 GFLOP (~9.5 us).
 // Both are bound by bytes, within 1.8x and 1.05x of their flop floors.
+// At the ViT's shape (8 clips of S = 3136, 16 heads of 64, every pair
+// visible) the same products come to 3 x 2 x 64 x 3136^2 x 16 x 8 = 0.48
+// TFLOP for flash_dq (0.49 ms) and 0.65 TFLOP for flash_dkv (0.65 ms)
+// against ~0.26 GB of bytes (0.08 ms): bound by operations, and at d = 64
+// the exponentials (one a pair, in both kernels) cost as much as the
+// products, as in the forward (flash_fwd.cu).
 //
 // Design (FlashAttention-3's shape, the forward's machinery in hopper.cuh):
 // three warpgroups a CTA, two consumers of 64 rows each and a producer whose
@@ -71,18 +83,29 @@
 //   * Causal: tiles wholly past the diagonal are skipped; the diagonal
 //     tiles, the ragged edge (rows beyond S come back from TMA as zeros and
 //     are invisible) and, with a key mask, every tile are masked.
+//   * d = 64 (the ViT) is the same code with one 64-column half a tile:
+//     dQ is 32 fp32 registers a thread, dK and dV 32 + 32. Its GQA group is
+//     1, so flash_dkv's cluster is 1 CTA and the group's sum reads only the
+//     CTA's own partials (mapa of rank 0 is its own shared memory) between
+//     the same barriers. Without causality every kv tile sees every q tile,
+//     so the grid puts a (batch, head)'s kv tiles side by side, as flash_dq
+//     its q tiles: the 25 CTAs that stream one head's Q and dO (0.8 MB a
+//     clip) run together and share them in L2, where the causal order
+//     (tile-major) would read them from HBM once a CTA, 2.5 GB at 8 clips.
+//     S = 3136 leaves a ragged last 128-row tile (24.5 tiles) on both
+//     kernels' own side, handled as the causal path handles it.
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 128;            // head dim
-constexpr int kHalves = kD / 64;   // 64-column (128 B) halves of a tile
 constexpr int kConsumers = 2;      // consumer warpgroups, 64 rows each
 constexpr int kThreads = (kConsumers + 1) * 128;
 // setmaxnreg's split of the 168 registers a thread gets at entry:
 // (168 - 40) x 128 = (232 - 168) x 256 for flash_dq; flash_dkv's consumers
-// hold dK and dV (128 fp32) besides S^T and dP^T (64) and take 240.
+// hold dK and dV (128 fp32 at d = 128) besides S^T and dP^T (64) and take
+// 240. The 384-thread launch bound keeps one CTA an SM at either head dim,
+// so d = 64, whose consumers need less (dK, dV 64 fp32), keeps the split.
 constexpr int kDqProducerRegs = 40;
 constexpr int kDqConsumerRegs = 232;
 constexpr int kDkvProducerRegs = 24;
@@ -96,7 +119,6 @@ constexpr int kDkvRows = 128;      // flash_dkv: kv rows a CTA
 constexpr int kDkvQ = 64;          //            q rows a streamed tile
 constexpr int kDkvStages = 2;
 constexpr int kMaxCluster = 8;     // the portable cluster size
-constexpr int kPitch = kD + 8;     // fp32 row pitch of the partials: float2 stores conflict-free
 
 static_assert(kDqRows == 64 * kConsumers && kDkvRows == 64 * kConsumers,
               "each consumer warpgroup owns 64 rows");
@@ -121,8 +143,11 @@ struct Params {
 };
 
 // Each tile array is a multiple of 1024 bytes and the structs start on a
-// 1024-byte boundary, as the 128B swizzle requires.
+// 1024-byte boundary, as the 128B swizzle requires. kD is the head dim, in
+// kD / 64 halves of 64 columns (128 B) a tile.
+template <int kD>
 struct DqSmem {
+  static constexpr int kHalves = kD / 64;
   bf16 q[kHalves][kDqRows * 64];
   bf16 dout[kHalves][kDqRows * 64];
   bf16 k[kDqStages][kHalves][kDqKv * 64];
@@ -134,20 +159,25 @@ struct DqSmem {
   uint64_t empty[kDqStages];
 };
 
+template <int kD>
 struct DkvTiles {
+  static constexpr int kHalves = kD / 64;
   bf16 k[kHalves][kDkvRows * 64];
   bf16 v[kHalves][kDkvRows * 64];
   bf16 q[kDkvStages][kHalves][kDkvQ * 64];
   bf16 dout[kDkvStages][kHalves][kDkvQ * 64];
 };
+template <int kD>
 struct DkvPartials {                       // this CTA's share of the group's sum
+  static constexpr int kPitch = kD + 8;    // fp32 row pitch: float2 stores conflict-free
   float dk[kDkvRows * kPitch];
   float dv[kDkvRows * kPitch];
 };
+template <int kD>
 struct DkvSmem {
   union {
-    DkvTiles t;                            // the main loop's tiles
-    DkvPartials part;                      // after it, over the spent tiles
+    DkvTiles<kD> t;                        // the main loop's tiles
+    DkvPartials<kD> part;                  // after it, over the spent tiles
   };
   float lse2[kDkvStages][kDkvQ];           // lse * log2(e) of the tile's q rows
   float delta[kDkvStages][kDkvQ];
@@ -156,8 +186,10 @@ struct DkvSmem {
   uint64_t empty[kDkvStages];
 };
 
-constexpr int kDqSmemBytes = (int)sizeof(DqSmem) + 1024;    // + alignment slack
-constexpr int kDkvSmemBytes = (int)sizeof(DkvSmem) + 1024;
+template <int kD>
+constexpr int dq_smem_bytes() { return (int)sizeof(DqSmem<kD>) + 1024; }   // + alignment slack
+template <int kD>
+constexpr int dkv_smem_bytes() { return (int)sizeof(DkvSmem<kD>) + 1024; }
 
 template <typename T>
 __device__ __forceinline__ T& aligned_smem(uint8_t* raw) {
@@ -166,13 +198,14 @@ __device__ __forceinline__ T& aligned_smem(uint8_t* raw) {
 
 // ---- flash_dq --------------------------------------------------------------
 
-template <bool kMasked>
+template <int kD, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                 const Params p) {
+  constexpr int kHalves = kD / 64;
   extern __shared__ uint8_t smem_raw[];
-  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  DqSmem<kD>& sm = aligned_smem<DqSmem<kD>>(smem_raw);
 
   const int S = p.seq_len;
   const int n_q = (S + kDqRows - 1) / kDqRows;
@@ -371,21 +404,31 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
 // ---- flash_dkv -------------------------------------------------------------
 
-template <bool kMasked>
+template <int kD, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                  const Params p) {
+  constexpr int kHalves = kD / 64;
+  constexpr int kPitch = DkvPartials<kD>::kPitch;
   extern __shared__ uint8_t smem_raw[];
-  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  DkvSmem<kD>& sm = aligned_smem<DkvSmem<kD>>(smem_raw);
 
   const int S = p.seq_len;
   const int n_q = (S + kDkvQ - 1) / kDkvQ;
   const int rank = blockIdx.x;         // the cluster spans grid x: its rank
   const int kv_batch = p.num_kv_heads * p.batch;
-  const int kv_tile = blockIdx.y / kv_batch;   // heaviest (lowest) kv tiles first
-  const int kvh = blockIdx.y % kv_batch % p.num_kv_heads;
-  const int b = blockIdx.y % kv_batch / p.num_kv_heads;
+  int kv_tile, bkv;
+  if (p.causal) {                      // heaviest (lowest) kv tiles first
+    kv_tile = blockIdx.y / kv_batch;
+    bkv = blockIdx.y % kv_batch;
+  } else {                             // a (batch, kv head)'s kv tiles side by side
+    const int n_kv = (S + kDkvRows - 1) / kDkvRows;
+    kv_tile = blockIdx.y % n_kv;
+    bkv = blockIdx.y / n_kv;
+  }
+  const int kvh = bkv % p.num_kv_heads;
+  const int b = bkv / p.num_kv_heads;
   const int k0 = kv_tile * kDkvRows;
   const int j0 = p.causal ? k0 / kDkvQ : 0;    // the first q tile that sees a key of this tile
   const int per_head = n_q - j0;
@@ -644,26 +687,32 @@ Params make_params(const float* lse, const float* delta, const int* key_mask, in
   return p;
 }
 
-bool valid(int batch, int seq_len, int num_q_heads, int num_kv_heads) {
-  return batch > 0 && seq_len > 0 && num_kv_heads > 0 && num_q_heads % num_kv_heads == 0;
+// The head dims and modes with an instantiation: d = 128 in every mode;
+// d = 64 dense (no key mask) and non-causal only, the ViT's.
+bool valid(int batch, int seq_len, int num_q_heads, int num_kv_heads, int head_dim,
+           const int* key_mask, int causal) {
+  const bool mode = head_dim == 128 || (head_dim == 64 && key_mask == nullptr && !causal);
+  return mode && batch > 0 && seq_len > 0 && num_kv_heads > 0 && num_q_heads % num_kv_heads == 0;
 }
 
-template <bool kMasked>
+template <int kD, bool kMasked>
 cudaError_t launch_dq(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<kMasked>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+  constexpr int smem = dq_smem_bytes<kD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<kD, kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = ((p.seq_len + kDqRows - 1) / kDqRows) * p.num_q_heads * p.batch;
-  flash_dq_kernel<kMasked><<<grid, kThreads, kDqSmemBytes, st>>>(maps[0], maps[1], maps[2],
-                                                                  maps[3], p);
+  flash_dq_kernel<kD, kMasked><<<grid, kThreads, smem, st>>>(maps[0], maps[1], maps[2],
+                                                               maps[3], p);
   return cudaGetLastError();
 }
 
-cudaLaunchConfig_t dkv_config(const Params& p, cudaStream_t st, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t dkv_config(const Params& p, int smem, cudaStream_t st,
+                              cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cluster, ((p.seq_len + kDkvRows - 1) / kDkvRows) * p.num_kv_heads * p.batch, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kDkvSmemBytes;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = p.cluster;
@@ -674,45 +723,50 @@ cudaLaunchConfig_t dkv_config(const Params& p, cudaStream_t st, cudaLaunchAttrib
   return cfg;
 }
 
-template <bool kMasked>
+template <int kD, bool kMasked>
 cudaError_t launch_dkv(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<kMasked>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  constexpr int smem = dkv_smem_bytes<kD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<kD, kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = dkv_config(p, st, &attr);
-  err = cudaLaunchKernelEx(&cfg, flash_dkv_kernel<kMasked>, maps[0], maps[1], maps[2], maps[3], p);
+  const cudaLaunchConfig_t cfg = dkv_config(p, smem, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, flash_dkv_kernel<kD, kMasked>, maps[0], maps[1], maps[2], maps[3],
+                           p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // Tensor maps of q, dO (boxes of q_rows) and k, v (boxes of kv_rows).
 bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, const void* dout,
-               int batch, int seq_len, int num_q_heads, int num_kv_heads,
+               int batch, int seq_len, int num_q_heads, int num_kv_heads, int head_dim,
                long long q_sb, long long q_ss, long long q_sh,
                long long k_sb, long long k_ss, long long k_sh,
                long long v_sb, long long v_ss, long long v_sh,
                long long do_sb, long long do_ss, long long do_sh, int q_rows, int kv_rows) {
-  return make_map(&maps[0], q, kD, seq_len, num_q_heads, batch, q_ss, q_sh, q_sb, q_rows) &&
-         make_map(&maps[1], dout, kD, seq_len, num_q_heads, batch, do_ss, do_sh, do_sb, q_rows) &&
-         make_map(&maps[2], k, kD, seq_len, num_kv_heads, batch, k_ss, k_sh, k_sb, kv_rows) &&
-         make_map(&maps[3], v, kD, seq_len, num_kv_heads, batch, v_ss, v_sh, v_sb, kv_rows);
+  const int d = head_dim;
+  return make_map(&maps[0], q, d, seq_len, num_q_heads, batch, q_ss, q_sh, q_sb, q_rows) &&
+         make_map(&maps[1], dout, d, seq_len, num_q_heads, batch, do_ss, do_sh, do_sb, q_rows) &&
+         make_map(&maps[2], k, d, seq_len, num_kv_heads, batch, k_ss, k_sh, k_sb, kv_rows) &&
+         make_map(&maps[3], v, d, seq_len, num_kv_heads, batch, v_ss, v_sh, v_sb, kv_rows);
 }
 
 }  // namespace
 
-// Plain C entry points, bound from Python with ctypes. q, dO (B, S, Hq, 128)
-// and k, v (B, S, Hkv, 128) are bf16 with a contiguous last dim, 16-byte
-// aligned, other strides (in elements) multiples of 8; lse and delta fp32
-// (B, Hq, S) contiguous; key_mask int32 (B, S) with unit stride along S and
-// row stride mask_sb, or null for the dense variant; the outputs bf16 with
-// the strides given and a contiguous last dim. Each launches on `stream` and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// shapes or operands that TMA cannot describe.
+// Plain C entry points, bound from Python with ctypes. q, dO (B, S, Hq, d)
+// and k, v (B, S, Hkv, d) are bf16 with a contiguous last dim, 16-byte
+// aligned, other strides (in elements) multiples of 8 (strided views such
+// as the ViT's slices of its packed qkv are read in place); lse and delta
+// fp32 (B, Hq, S) contiguous; key_mask int32 (B, S) with unit stride along S
+// and row stride mask_sb, or null for the dense variant; the outputs bf16
+// with the strides given and a contiguous last dim. head_dim 128 takes every
+// mode; head_dim 64 only the dense non-causal one. Each launches on `stream`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a mode that has no instantiation or operands that TMA cannot describe.
 extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, const int* key_mask,
                              void* dq, int batch, int seq_len, int num_q_heads,
-                             int num_kv_heads,
+                             int num_kv_heads, int head_dim,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
                              long long v_sb, long long v_ss, long long v_sh,
@@ -720,9 +774,10 @@ extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const 
                              long long dq_sb, long long dq_ss, long long dq_sh,
                              long long mask_sb, float scale, int causal, void* stream) {
   CUtensorMap maps[4];
-  if (!valid(batch, seq_len, num_q_heads, num_kv_heads) ||
-      !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, q_sb, q_ss,
-                 q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDqRows, kDqKv)) {
+  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim, key_mask, causal) ||
+      !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, head_dim, q_sb,
+                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDqRows,
+                 kDqKv)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p = make_params(lse, delta, key_mask, batch, seq_len, num_q_heads, num_kv_heads,
@@ -730,13 +785,14 @@ extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const 
   p.out0 = static_cast<bf16*>(dq);
   p.o0_sb = dq_sb; p.o0_ss = dq_ss; p.o0_sh = dq_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(key_mask ? launch_dq<true>(maps, p, st) : launch_dq<false>(maps, p, st));
+  if (head_dim == 64) return (int)launch_dq<64, false>(maps, p, st);
+  return (int)(key_mask ? launch_dq<128, true>(maps, p, st) : launch_dq<128, false>(maps, p, st));
 }
 
 extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, const int* key_mask,
                               void* dk, void* dv, int batch, int seq_len, int num_q_heads,
-                              int num_kv_heads,
+                              int num_kv_heads, int head_dim,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh,
@@ -745,9 +801,10 @@ extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const
                               long long dv_sb, long long dv_ss, long long dv_sh,
                               long long mask_sb, float scale, int causal, void* stream) {
   CUtensorMap maps[4];
-  if (!valid(batch, seq_len, num_q_heads, num_kv_heads) ||
-      !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, q_sb, q_ss,
-                 q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDkvQ, kDkvRows)) {
+  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim, key_mask, causal) ||
+      !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, head_dim, q_sb,
+                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDkvQ,
+                 kDkvRows)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p = make_params(lse, delta, key_mask, batch, seq_len, num_q_heads, num_kv_heads,
@@ -757,17 +814,22 @@ extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const
   p.o0_sb = dk_sb; p.o0_ss = dk_ss; p.o0_sh = dk_sh;
   p.o1_sb = dv_sb; p.o1_ss = dv_ss; p.o1_sh = dv_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(key_mask ? launch_dkv<true>(maps, p, st) : launch_dkv<false>(maps, p, st));
+  if (head_dim == 64) return (int)launch_dkv<64, false>(maps, p, st);
+  return (int)(key_mask ? launch_dkv<128, true>(maps, p, st) : launch_dkv<128, false>(maps, p, st));
 }
 
-// Dynamic shared memory a CTA uses, in bytes: flash_dkv's if `dkv`, else flash_dq's.
-extern "C" int blim_flash_bwd_smem_bytes(int dkv) {
-  return dkv ? kDkvSmemBytes : kDqSmemBytes;
+// Dynamic shared memory a CTA uses at this head dim, in bytes: flash_dkv's
+// if `dkv`, else flash_dq's (0 for a head dim without an instantiation).
+extern "C" int blim_flash_bwd_smem_bytes(int dkv, int head_dim) {
+  if (head_dim == 128) return dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>();
+  if (head_dim == 64) return dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>();
+  return 0;
 }
 
 // flash_dkv's cluster size for a GQA group, and how many such clusters of
-// the masked kernel the card can hold at once (cudaOccupancyMaxActiveClusters),
-// packed as cluster_size * 1000 + clusters; negative on a CUDA error.
+// the masked kernel at d = 128 the card can hold at once
+// (cudaOccupancyMaxActiveClusters), packed as cluster_size * 1000 +
+// clusters; negative on a CUDA error.
 extern "C" int blim_flash_dkv_cluster_occupancy(int group) {
   Params p = {};
   p.group = group;
@@ -775,13 +837,14 @@ extern "C" int blim_flash_dkv_cluster_occupancy(int group) {
   p.seq_len = kDkvRows;
   p.num_kv_heads = 1;
   p.batch = 1;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  constexpr int smem = dkv_smem_bytes<128>();
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<128, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = dkv_config(p, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = dkv_config(p, smem, nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, flash_dkv_kernel<true>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, flash_dkv_kernel<128, true>, &cfg);
   if (err != cudaSuccess) return -(int)err;
   return p.cluster * 1000 + clusters;
 }

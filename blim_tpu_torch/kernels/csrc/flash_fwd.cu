@@ -2,7 +2,7 @@
 // dense, GQA, bf16 in / fp32 accumulate, with or without the fp32 logsumexp
 // rows that the backward (flash_bwd.cu) reads. One kernel template over the
 // head dim: d = 128 (the 7B decoder, every mode) and d = 64 (the UMT ViT,
-// dense only).
+// dense and non-causal only, with or without lse).
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_fwd_kernel` (:42-125),
 // launched by `_flash_forward` -> pl.pallas_call (:178), in three uses:
@@ -16,7 +16,10 @@
 //     unrolled KV loop :104-111, picked by the wrapper at :498-510), d = 64:
 //     every attention of the UMT ViT-L tower in feature extraction
 //     (umt_vit.vit_block), q, k, v read in place as strided views of the
-//     packed qkv projection.
+//     packed qkv projection;
+//   * B2-lse: the same dense mode with lse (via `_vjp_fwd` :434), d = 64:
+//     every attention of the tower when it is differentiated, ahead of
+//     flash_bwd.cu's d = 64 backward.
 //
 // Semantics, the same as the TPU kernel and the plain version
 // (kernels/attention.py::reference_attention):
@@ -402,7 +405,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 // masks are int32 (B, S) with unit stride along S, both null for the dense
 // variant. `lse` is null (inference) or fp32 (B, Hq, S) with unit stride
 // along S. head_dim 128 takes every mode; head_dim 64 only the dense
-// inference mode (no masks, no lse). Launches on `stream` and returns
+// non-causal mode (no masks), with or without lse. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a mode
 // that has no instantiation or operands that TMA cannot describe.
 extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
@@ -416,7 +419,7 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               long long o_sb, long long o_ss, long long o_sh,
                               long long mask_sb, float scale, int causal, void* stream) {
   const bool masked = key_mask != nullptr;
-  const bool dense64 = head_dim == 64 && !masked && query_mask == nullptr && lse == nullptr;
+  const bool dense64 = head_dim == 64 && !masked && query_mask == nullptr && !causal;
   if (!(head_dim == 128 || dense64) || batch <= 0 || seq_len <= 0 || num_kv_heads <= 0 ||
       num_q_heads % num_kv_heads != 0) {
     return (int)cudaErrorInvalidValue;
@@ -445,7 +448,10 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
 
   const int grid = ((seq_len + kBQ - 1) / kBQ) * num_q_heads * batch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dense64) return (int)launch<64, false, false>(tq, tk, tv, p, grid, st);
+  if (dense64) {
+    return (int)(lse ? launch<64, false, true>(tq, tk, tv, p, grid, st)
+                     : launch<64, false, false>(tq, tk, tv, p, grid, st));
+  }
   if (masked) {
     return (int)(lse ? launch<128, true, true>(tq, tk, tv, p, grid, st)
                      : launch<128, true, false>(tq, tk, tv, p, grid, st));

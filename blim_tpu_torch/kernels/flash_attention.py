@@ -3,8 +3,10 @@
 versions and the autograd Function that joins them. Port of
 blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse (B1, the
 zero-shot prefix forwards, d = 128), with lse (B1-lse, `_vjp_fwd`), and in
-its dense non-causal mode at d = 64 (B2, every attention of the UMT ViT),
-`_dq_kernel` (B3), `_dkv_kernel` (B4), and the custom VJP `_flash_attention`.
+its dense non-causal mode at d = 64 without lse (B2, every attention of the
+UMT ViT) and with it (B2-lse, the ViT under autograd), `_dq_kernel` (B3; B3-d64
+dense non-causal), `_dkv_kernel` (B4; B4-d64), and the custom VJP
+`_flash_attention`.
 
 Build. At first use a wrapper compiles its source with nvcc for sm_90a into
 a shared library with plain C entry points and loads it with ctypes. Each
@@ -15,12 +17,14 @@ sources at once, one nvcc each. A failed build raises: there is no fallback
 to the plain version on a CUDA tensor.
 
 Dispatch. A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises. The head dims the kernels take are those flash_fwd.cu
-instantiates: 128 for B1, B1-lse, B3 and B4, 64 for B2; any other raises.
-The counters count kernel launches and nothing else: `launches` (B1,
-inference), `launches_lse` (B1-lse), `launches_dense` (B2), `launches_dq`
-(B3) and `launches_dkv` (B4). Callers reset them to 0 to check that a path
-went through the kernels.
+the kernel or raises. The head dims the kernels take are those the sources
+instantiate: 128 in every mode (B1, B1-lse, B3, B4); 64 only dense (no
+masks) and non-causal (B2, B2-lse, B3-d64, B4-d64), the ViT's mode; any
+other raises. The counters count kernel launches and nothing else:
+`launches` (B1, inference), `launches_lse` (B1-lse), `launches_dense` (B2),
+`launches_dense_lse` (B2-lse), `launches_dq` (B3), `launches_dkv` (B4),
+`launches_dq_dense` (B3-d64) and `launches_dkv_dense` (B4-d64). Callers
+reset them to 0 to check that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -45,25 +49,31 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIM = 128        # B1, B1-lse, B3, B4 (the 7B decoder)
-DENSE_HEAD_DIM = 64   # B2 (the UMT ViT-L: hidden 1024 over 16 heads)
+DENSE_HEAD_DIM = 64   # B2, B2-lse, B3-d64, B4-d64 (the UMT ViT-L: hidden 1024 over 16 heads)
 
 launches = 0          # B1 (no lse) launches since the caller last reset it
 launches_lse = 0      # B1-lse launches
 launches_dense = 0    # B2 launches
+launches_dense_lse = 0  # B2-lse launches
 launches_dq = 0       # B3 launches
 launches_dkv = 0      # B4 launches
+launches_dq_dense = 0   # B3-d64 launches
+launches_dkv_dense = 0  # B4-d64 launches
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_counts() -> None:
-    global launches, launches_lse, launches_dense, launches_dq, launches_dkv
-    launches = launches_lse = launches_dense = launches_dq = launches_dkv = 0
+    global launches, launches_lse, launches_dense, launches_dense_lse
+    global launches_dq, launches_dkv, launches_dq_dense, launches_dkv_dense
+    launches = launches_lse = launches_dense = launches_dense_lse = 0
+    launches_dq = launches_dkv = launches_dq_dense = launches_dkv_dense = 0
 
 
 def counts() -> Dict[str, int]:
     return {"flash_fwd": launches, "flash_fwd_lse": launches_lse,
-            "flash_fwd_dense": launches_dense, "flash_dq": launches_dq,
-            "flash_dkv": launches_dkv}
+            "flash_fwd_dense": launches_dense, "flash_fwd_dense_lse": launches_dense_lse,
+            "flash_dq": launches_dq, "flash_dkv": launches_dkv,
+            "flash_dq_dense": launches_dq_dense, "flash_dkv_dense": launches_dkv_dense}
 
 
 def _nvcc() -> str:
@@ -134,11 +144,11 @@ def _library(name: str) -> ctypes.CDLL:
             lib.blim_cuda_error_string.argtypes = [i32]
             lib.blim_cuda_error_string.restype = ctypes.c_char_p
         else:
-            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 16 + [f32, i32, ptr]
+            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 16 + [f32, i32, ptr]
             lib.blim_flash_dq.restype = i32
-            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [i64] * 19 + [f32, i32, ptr]
+            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 19 + [f32, i32, ptr]
             lib.blim_flash_dkv.restype = i32
-            lib.blim_flash_bwd_smem_bytes.argtypes = [i32]
+            lib.blim_flash_bwd_smem_bytes.argtypes = [i32, i32]
             lib.blim_flash_bwd_smem_bytes.restype = i32
             lib.blim_flash_dkv_cluster_occupancy.argtypes = [i32]
             lib.blim_flash_dkv_cluster_occupancy.restype = i32
@@ -181,6 +191,15 @@ def _mask_operand(m: Optional[torch.Tensor], shape, device) -> torch.Tensor:
     if m.device != device:
         raise ValueError(f"mask is on {m.device}, expected {device}")
     return m.to(torch.int32).contiguous()
+
+
+def kernel_head_dim(q: torch.Tensor, key_mask, query_mask, causal: bool) -> int:
+    """The head dim the kernels take in this mode: DENSE_HEAD_DIM for a
+    d = 64 operand without masks and not causal (the ViT's mode), else
+    HEAD_DIM. An operand of any other head dim fails the check against it."""
+    dense64 = (q.shape[-1] == DENSE_HEAD_DIM and key_mask is None and query_mask is None
+               and not causal)
+    return DENSE_HEAD_DIM if dense64 else HEAD_DIM
 
 
 def _cuda_device(q: torch.Tensor, entry: str) -> torch.device:
@@ -332,14 +351,20 @@ def flash_attention(
 def flash_attention_lse(q, k, v, *, key_mask=None, query_mask=None, causal=True,
                         scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1-lse: flash_attention's output and the fp32 logsumexp rows (B, Hq, S),
-    written for rows < S."""
-    global launches_lse
+    written for rows < S. At head dim 64 without masks and not causal (the
+    ViT's mode, operands possibly strided views) it is B2-lse."""
+    global launches_lse, launches_dense_lse
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention_lse(q, k, v, key_mask, query_mask, causal, scale)
-    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True)
-    launches_lse += 1
+    head_dim = kernel_head_dim(q, key_mask, query_mask, causal)
+    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True,
+                      head_dim=head_dim)
+    if head_dim == DENSE_HEAD_DIM:
+        launches_dense_lse += 1
+    else:
+        launches_lse += 1
     return out
 
 
@@ -369,20 +394,23 @@ def flash_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B3 + B4 (`_flash_backward`): dO times the query mask and delta =
     rowsum(dO * O) in fp32 are two torch ops, as they were XLA outside Pallas;
-    then B3 writes dq and B4 writes dk and dv. Same signature and result as
-    reference_attention_backward, which a CPU tensor takes."""
-    global launches_dq, launches_dkv
+    then B3 writes dq and B4 writes dk and dv. At head dim 64 without masks
+    and not causal (the ViT's mode) they are B3-d64 and B4-d64. q, k and v
+    are read in place at every head dim (the TMA maps take their strides, so
+    the ViT's strided views of its packed qkv need no copy). Same signature
+    and result as reference_attention_backward, which a CPU tensor takes."""
+    global launches_dq, launches_dkv, launches_dq_dense, launches_dkv_dense
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention_backward(q, k, v, key_mask, query_mask, out, lse, dout,
                                             causal, scale)
     dev = _cuda_device(q, "flash_attention_backward")
+    head_dim = kernel_head_dim(q, key_mask, query_mask, causal)
     g = _mask_grad(dout, query_mask).to(q.dtype).contiguous()
     delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # (B, Hq, S)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", g)):
-        _check_operand(name, t, dev)
+        _check_operand(name, t, dev, head_dim)
     _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
     if lse.shape != (b, hq, s) or lse.dtype != torch.float32 or lse.device != dev:
@@ -394,28 +422,37 @@ def flash_attention_backward(
     dq, dk, dv, call_dq, call_dkv = _backward_calls(q, k, v, g, lse.contiguous(), delta, km,
                                                     scale, causal)
     error_string = _library("flash_bwd").blim_flash_bwd_error_string
+    dense = head_dim == DENSE_HEAD_DIM
     _raise_on(call_dq(), "flash_dq", error_string)
-    launches_dq += 1
+    if dense:
+        launches_dq_dense += 1
+    else:
+        launches_dq += 1
     _raise_on(call_dkv(), "flash_dkv", error_string)
-    launches_dkv += 1
+    if dense:
+        launches_dkv_dense += 1
+    else:
+        launches_dkv += 1
     return dq, dk, dv
 
 
 def _backward_calls(q, k, v, g, lse, delta, key_mask, scale, causal):
     """flash_bwd.cu's two C entry points on prepared operands (q, k, v, g =
-    dO times the query mask; lse, delta contiguous fp32 (B, Hq, S); an int32
-    key mask with unit stride along S, or None): (dq, dk, dv, call_dq,
-    call_dkv). Each call launches one kernel on the current stream into the
-    outputs and returns its CUDA error code; nothing is checked or counted."""
+    dO times the query mask, each with a contiguous last dim; lse, delta
+    contiguous fp32 (B, Hq, S); an int32 key mask with unit stride along S,
+    or None): (dq, dk, dv, call_dq, call_dkv), the outputs contiguous. Each
+    call launches one kernel on the current stream into the outputs and
+    returns its CUDA error code; nothing is checked or counted."""
     lib = _library("flash_bwd")
-    b, s, hq, _ = q.shape
+    b, s, hq, d = q.shape
     hkv = k.shape[2]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), None if key_mask is None else key_mask.data_ptr())
-    shape = (b, s, hq, hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3])
+    shape = (b, s, hq, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *g.stride()[:3])
     tail = (0 if key_mask is None else key_mask.stride(0), float(scale), int(bool(causal)))
 
     def call_dq() -> int:
@@ -436,7 +473,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     """The counterpart of the JAX custom VJP `_flash_attention` (`_vjp_fwd` /
     `_vjp_bwd`): the forward runs B1-lse and saves q, k, v, the masks, O and
     lse; the backward runs B3 and B4 and returns gradients for q, k, v only.
-    CPU tensors take the plain versions at both ends."""
+    At head dim 64, dense and not causal (the ViT's mode) the same ends run
+    B2-lse, B3-d64 and B4-d64. CPU tensors take the plain versions at both
+    ends."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, query_mask, causal, scale):

@@ -175,6 +175,23 @@ Phases, one line each (all numbers beside the card's name and power limit):
               of its train steps gives them (recorded in this process), with
               unit-normal q, k, v and dO, against their plain versions at
               ATTN_ATOL / LSE_TOL / GRAD_TOL.
+ 16. vit-grad  (run after phase 10, on its seeded ViT-L tower) the tower's
+              gradient on the card: 16a, B2-lse (flash_fwd_dense_lse), B3-d64
+              (flash_dq_dense) and B4-d64 (flash_dkv_dense) against their
+              plain versions at VIT_CLIPS clips of (3136, 16, 64), q, k, v
+              strided views of one packed qkv, timed like phases 2 and 6
+              (library yardstick: SDPA's forward and its backward), and
+              held (untimed) at the image tiles' (5, 784, 16, 64); 16b, the
+              gradient of a seeded linear loss on GRAD_VIT_LAYERS blocks at
+              full width and GRAD_VIT_CLIPS clips through the kernels against
+              the same through the plain attention in fp32, on the pixels and
+              the first and last blocks' qkv and fc2 kernels (GRAD_TOL x
+              max|plain|), and again with a planted backward fault (lse +
+              log 2; dk and dv swapped), each of which must exceed it; 16c,
+              the whole tower (23 blocks) forward and backward at VIT_CLIPS
+              clips, timed (one untimed, VIT_GRAD_TIMED timed), its peak
+              memory, every gradient finite and exactly 23 launches of each
+              of the three kernels a run and none of any other.
 Then the whole script's time, one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -274,7 +291,11 @@ GRADCHECK_TOL = 5e-2        # |kernel - plain| per LoRA leaf over max|plain|: bf
                             # activations through 2 layers, P and dS rounded to
                             # bf16 in the kernels, in another order in the plain
 
-VIT_CLIPS = 8        # B2's check and record shape: the end-to-end batch, 2 videos x 4 clips
+VIT_CLIPS = 8        # B2's check and record shape: the end-to-end batch, 2 videos x 4 clips;
+                     # also B2-lse, B3-d64 and B4-d64's and the whole tower's gradient (phase 16)
+GRAD_VIT_LAYERS = 4  # phase 16b: blocks of the tower whose gradient is held to the plain
+GRAD_VIT_CLIPS = 2   # attention's, at full width, and its clips
+VIT_GRAD_TIMED = 3   # phase 16c: timed forward + backward runs of the whole tower
 EXTRACT_B = 16       # featurizer batch in videos (the JAX package's featurizer bench)
 EXTRACT_TIMED = 5    # timed featurizer batches after one untimed
 E2E_VIDEOS = 32      # end-to-end extraction: videos, batch, frames of each video
@@ -425,21 +446,20 @@ def raw_fwd(q, k, v, mask=None, causal=True, with_lse=False):
     return call
 
 
-def raw_bwd(q, k, v, dout, mask, out, lse):
+def raw_bwd(q, k, v, dout, mask, out, lse, causal=True):
     """Zero-argument calls of flash_bwd.cu's two C entry points (dq, then dk
     and dv) on operands prepared once, as the wrapper prepares them: dO
-    times the mask, delta = rowsum(dO * O), a causal masked launch each; no
-    checks, no allocation, no launch counted."""
+    times the mask (if any), delta = rowsum(dO * O), q, k, v read in place;
+    no checks, no allocation, no launch counted."""
     import torch
 
     from blim_tpu_torch.kernels import flash_attention as fa
 
-    g = (dout * mask[:, :, None, None].to(dout.dtype)).contiguous()
+    g = (dout if mask is None else dout * mask[:, :, None, None].to(dout.dtype)).contiguous()
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    km = mask.to(torch.int32).contiguous()
-    *_, call_dq, call_dkv = fa._backward_calls(q.contiguous(), k.contiguous(), v.contiguous(),
-                                               g, lse.contiguous(), delta, km,
-                                               q.shape[-1] ** -0.5, True)
+    km = None if mask is None else mask.to(torch.int32).contiguous()
+    *_, call_dq, call_dkv = fa._backward_calls(q, k, v, g, lse.contiguous(), delta, km,
+                                               q.shape[-1] ** -0.5, causal)
     error_string = fa._library("flash_bwd").blim_flash_bwd_error_string
 
     def checked(call, name):
@@ -450,6 +470,20 @@ def raw_bwd(q, k, v, dout, mask, out, lse):
         return run
 
     return checked(call_dq, "flash_dq"), checked(call_dkv, "flash_dkv")
+
+
+def sdpa_backward_ms(sdpa, inputs, dout, **timing):
+    """SDPA's backward alone (the library yardstick of B3 + B4): its forward
+    runs eagerly on a side stream, then autograd.grad of the inputs (dq, dk,
+    dv) is captured on that stream and timed like graph_time_ms."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = sdpa()
+    return graph_time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True),
+                         stream=side, **timing)
 
 
 def pairs_visible(key_mask, query_mask):
@@ -478,17 +512,23 @@ def attention_bound_ms(b, s, hq, hkv, d, key_mask, query_mask):
     return roofline_ms(nbytes, 4.0 * d * hq * pairs)
 
 
-def backward_traffic(b, s, hq, hkv, d, key_mask, query_mask):
-    """Bytes and flops of one causal masked backward, per kernel: each input
-    read once and each output written once; B3 (flash_dq) reads q, dO, k, v,
-    lse, delta, the mask and writes dq, against 3 products of 2 d flops per
+def backward_traffic(b, s, hq, hkv, d, key_mask, query_mask, causal=True):
+    """Bytes and flops of one backward, per kernel: each input read once and
+    each output written once; B3 (flash_dq) reads q, dO, k, v, lse, delta,
+    the mask (if any) and writes dq, against 3 products of 2 d flops per
     visible (query, key) pair; B4 (flash_dkv) reads the same and writes dk,
-    dv, against 4 products."""
+    dv, against 4 products. Masked, the pairs are the causal ones with both
+    masks 1; without masks, the causal triangle or (causal=False, the ViT)
+    all S^2 of them."""
     q_like = 2 * b * s * hq * d       # bf16 q, dO or dq
     kv_like = 2 * b * s * hkv * d     # bf16 k, v, dk or dv
     stats = 2 * 4 * b * hq * s        # fp32 lse and delta
-    mask = 4 * b * s
-    pairs = pairs_visible(key_mask, query_mask)
+    if key_mask is None:
+        mask = 0
+        pairs = float(b * s * (s + 1) // 2 if causal else b * s * s)
+    else:
+        mask = 4 * b * s
+        pairs = pairs_visible(key_mask, query_mask)
     return {"flash_dq": (3 * q_like + 2 * kv_like + stats + mask, 6.0 * d * hq * pairs),
             "flash_dkv": (2 * q_like + 4 * kv_like + stats + mask, 8.0 * d * hq * pairs)}
 
@@ -507,9 +547,12 @@ def phase_build():
                 print(f"[build]   {ln.strip()}", flush=True)
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
     print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
-          f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense), "
-          f"flash_dq {bwd.blim_flash_bwd_smem_bytes(0)} B, "
-          f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1)} B", flush=True)
+          f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense, "
+          f"flash_fwd_dense_lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B at d 128, "
+          f"{bwd.blim_flash_bwd_smem_bytes(0, 64)} B at d 64, "
+          f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1, 128)} B at d 128, "
+          f"{bwd.blim_flash_bwd_smem_bytes(1, 64)} B at d 64 (cluster of 1 CTA at the ViT's "
+          f"group of 1)", flush=True)
     occupancy = bwd.blim_flash_dkv_cluster_occupancy(7)
     if occupancy < 0:
         fail(f"flash_dkv cluster occupancy query: CUDA error {-occupancy}")
@@ -695,15 +738,7 @@ def phase_train_kernels(card):
         call_dq, call_dkv = raw_bwd(q, k, v, dout, m, ref, ref_lse)
         ms_dq_only = graph_time_ms(call_dq)
         ms_dkv_only = graph_time_ms(call_dkv)
-        # SDPA's backward alone: its forward runs eagerly on a side stream,
-        # then autograd.grad (dq, dk, dv) is captured on that stream
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            out_sdpa = sdpa()
-        do_t = dout.transpose(1, 2)
-        lib_bwd = graph_time_ms(lambda: torch.autograd.grad(out_sdpa, (qt, kt, vt), do_t,
-                                                            retain_graph=True), stream=side)
+        lib_bwd = sdpa_backward_ms(sdpa, (qt, kt, vt), dout.transpose(1, 2))
         traffic = backward_traffic(b, s, hq, hkv, d, m, m)
         b_dq, by_dq = roofline_ms(*traffic["flash_dq"])
         b_dkv, by_dkv = roofline_ms(*traffic["flash_dkv"])
@@ -727,6 +762,34 @@ def phase_train_kernels(card):
                 rec.update(ms=ms_k, wrapper_ms=ms_wrapper, plain_ms=plain_bwd, bound_ms=b_k,
                            bound_by=by_k, library_ms=lib_bwd,
                            plain_and_library_cover="dq+dk+dv", wrapper_covers="dq+dk+dv")
+
+    # B3 + B4 in the non-causal masked mode at group 7 (no path runs it; held here
+    # because its grid order is the non-causal one B3-d64/B4-d64 share)
+    name, m = train_attention_cases()[0]
+    b, s = m.shape
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                     for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    ref, ref_lse = fa.reference_attention_lse(q, k, v, m, m, False, scale)
+    before = fa.counts()
+    got = fa.flash_attention_backward(q, k, v, m, m, ref, ref_lse, dout, causal=False)
+    torch.cuda.synchronize()
+    if (fa.launches_dq, fa.launches_dkv) != (before["flash_dq"] + 1, before["flash_dkv"] + 1):
+        fail(f"flash_dq/dkv non-causal {name}: the wrapper did not launch each kernel once")
+    want = fa.reference_attention_backward(q, k, v, m, m, ref, ref_lse, dout, False, scale)
+    errs = {gname: ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want)}
+    print(f"[train-kernels] flash_dq/flash_dkv non-causal {name}: " + ", ".join(
+        f"{gname} max|d| {e:.3e} (max|plain| {mx:.3e})" for gname, (e, mx) in errs.items())
+        + f" (tol {GRAD_TOL} max|plain|) [{card}]", flush=True)
+    for gname, g in zip(("dq", "dk", "dv"), got):
+        if not torch.isfinite(g).all():
+            fail(f"{gname} non-causal {name}: non-finite")
+        e, mx = errs[gname]
+        if e > GRAD_TOL * mx:
+            fail(f"{gname} non-causal {name}: |kernel - plain| {e:.3e} > {GRAD_TOL} x {mx:.3e}")
+    for key, gnames in (("flash_dq", ("dq",)), ("flash_dkv", ("dk", "dv"))):
+        records[key]["max_abs_err"] = max([records[key]["max_abs_err"]]
+                                          + [errs[gn][0] for gn in gnames])
     return records
 
 
@@ -1993,9 +2056,8 @@ def phase_train(st, card):
     counts = fa.counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     layers = cfg.llm.num_hidden_layers
-    expected = {"flash_fwd": 0, "flash_fwd_lse": TRAIN_STEPS * (1 + 1) * layers * 2,
-                "flash_fwd_dense": 0, "flash_dq": TRAIN_STEPS * layers * 2,
-                "flash_dkv": TRAIN_STEPS * layers * 2}
+    expected = dict({k: 0 for k in counts}, flash_fwd_lse=TRAIN_STEPS * (1 + 1) * layers * 2,
+                    flash_dq=TRAIN_STEPS * layers * 2, flash_dkv=TRAIN_STEPS * layers * 2)
     ms = [t * 1e3 for t in times]
     print(f"[train] Qwen2-7B LoRA train step, B={TRAIN_B}, VTG seq {vtg_layout.seq_len} + TVG seq "
           f"{tvg_layout.seq_len}, remat: {TRAIN_WARM} untimed steps in {warm_s:.2f}s, then "
@@ -2080,8 +2142,8 @@ def phase_gradcheck(st, card):
                 for n, g, w in zip(names, k_grads, p_grads))
     worst_norm = max(((g - w).norm().item() / w.norm().item(), n)
                      for n, g, w in zip(names, k_grads, p_grads))
-    expected = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * GRADCHECK_LAYERS, "flash_fwd_dense": 0,
-                "flash_dq": 2 * GRADCHECK_LAYERS, "flash_dkv": 2 * GRADCHECK_LAYERS}
+    expected = dict({k: 0 for k in k_counts}, flash_fwd_lse=2 * 2 * GRADCHECK_LAYERS,
+                    flash_dq=2 * GRADCHECK_LAYERS, flash_dkv=2 * GRADCHECK_LAYERS)
     print(f"[gradcheck] {GRADCHECK_LAYERS} layers at full width, B={GRADCHECK_B}: loss kernel "
           f"{k_loss:.5f} vs plain {p_loss:.5f} (tol {GRADCHECK_LOSS_TOL}); worst LoRA leaf "
           f"max|d|/max|plain| {worst[0]:.3e} at {worst[1]} (tol {GRADCHECK_TOL}), worst "
@@ -2490,8 +2552,8 @@ def check_dp_ranks(label, results, refs, card):
         if same > DP_SAME_SHAPE_TOL:
             fail(f"{label} {name}: cells whose steps kept their batch size are {same:.3e} off "
                  f"the one-process run")
-    train_expected = {"flash_fwd": 0, "flash_fwd_lse": 4 * layers, "flash_fwd_dense": 0,
-                      "flash_dq": 2 * layers, "flash_dkv": 2 * layers}
+    train_expected = dict({k: 0 for k in results[0]["train"][0]["counts"]},
+                          flash_fwd_lse=4 * layers, flash_dq=2 * layers, flash_dkv=2 * layers)
     for i in range(DP_TRAIN_STEPS):
         steps = [out["train"][i] for out in results]
         for r, st in enumerate(steps):
@@ -2618,10 +2680,12 @@ def phase_dp(card, refs):
     return records
 
 
-def vit_attention_bound_ms(clips, s, h, d):
-    """Bound of one B2 launch: q, k, v read once and o written once, against
-    4 S^2 d flops per head and clip (QK^T and PV, no pair skipped)."""
-    return roofline_ms(2 * 4 * clips * s * h * d, 4.0 * clips * h * s * s * d)
+def vit_attention_bound_ms(clips, s, h, d, with_lse=False):
+    """Bound of one B2 launch: q, k, v read once and o written once (and,
+    B2-lse, the fp32 lse rows), against 4 S^2 d flops per head and clip
+    (QK^T and PV, no pair skipped)."""
+    nbytes = 2 * 4 * clips * s * h * d + (4 * clips * h * s if with_lse else 0)
+    return roofline_ms(nbytes, 4.0 * clips * h * s * s * d)
 
 
 def phase_vit_kernel(card):
@@ -2880,7 +2944,314 @@ def phase_extract(card):
           f"on <= {RESIZE_SHARE}) [{card}]", flush=True)
     if off.max() > 1 or share_off > RESIZE_SHARE:
         fail("the on-card resize disagrees with the CPU resize")
-    return dict(launches=e2e_counts["flash_fwd_dense"], featurizer_vps=vps, e2e_vps=n_ok / e2e_s)
+    return dict(launches=e2e_counts["flash_fwd_dense"], featurizer_vps=vps, e2e_vps=n_ok / e2e_s,
+                vit=vit, cfg=cfg)
+
+
+def vit_grad_kernels(card):
+    """Phase 16a: B2-lse, B3-d64 and B4-d64 against their plain versions at
+    VIT_CLIPS clips of the ViT's (S, H, d), q, k and v strided views of one
+    packed qkv as the tower hands them, with times; returns their records."""
+    import torch
+    import torch.nn.functional as F
+
+    from blim_tpu_torch.core.config import ModelConfig
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vcfg = ModelConfig().vision                       # (S, H, d) = (3136, 16, 64)
+    s, h = vcfg.num_frames * vcfg.patches_per_frame, vcfg.num_attention_heads
+    d = vcfg.hidden_size // h
+    scale = d ** -0.5
+    clips = VIT_CLIPS
+    shape = f"{clips} clips ({clips}, {s}, {h}, {d}) strided views of a packed qkv"
+    qkv = torch.randn((clips, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn((clips, s, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    records = {}
+
+    # B2-lse
+    before = fa.counts()
+    out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    if fa.counts() != dict(before, flash_fwd_dense_lse=before["flash_fwd_dense_lse"] + 1):
+        fail(f"flash_fwd_dense_lse: the wrapper did not launch B2-lse once ({before} -> "
+             f"{fa.counts()})")
+    ref, ref_lse = fa.reference_attention_lse(q, k, v, None, None, False, scale)
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail("flash_fwd_dense_lse: non-finite output or lse")
+    diff = (out.float() - ref.float()).abs()
+    err_o = diff.max().item()
+    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    del diff, out, lse
+    ms = graph_time_ms(raw_fwd(q, k, v, causal=False, with_lse=True), iters=10, replays=2)
+    wrapper_ms = gpu_time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=False), iters=10)
+    plain_ms = gpu_time_ms(lambda: fa.reference_attention_lse(q, k, v, None, None, False, scale),
+                           iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    lib_ms = graph_time_ms(sdpa, iters=10, replays=2)   # with grad on, it also keeps its lse
+    bound_ms, bound_by = vit_attention_bound_ms(clips, s, h, d, with_lse=True)
+    print(f"[vit-grad] flash_fwd_dense_lse {shape}: max|d| out {err_o:.3e} (tol {ATTN_ATOL} + "
+          f"{ATTN_RTOL}|plain|), lse {err_lse:.3e} (tol {LSE_TOL}); kernel {ms:.4f} ms (raw entry "
+          f"point, CUDA graph), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd "
+          f"{lib_ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms ({bound_by}): kernel at "
+          f"{100 * bound_ms / ms:.1f}% of the bound [{card}]", flush=True)
+    if excess > ATTN_ATOL or err_lse > LSE_TOL:
+        fail("flash_fwd_dense_lse: kernel and plain disagree")
+    records["flash_fwd_dense_lse"] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          library_ms=lib_ms, max_abs_err=max(err_o, err_lse))
+
+    # B3-d64 + B4-d64 on the plain forward's O and lse, so both sides read the same inputs
+    before = fa.counts()
+    got = fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False)
+    torch.cuda.synchronize()
+    if fa.counts() != dict(before, flash_dq_dense=before["flash_dq_dense"] + 1,
+                           flash_dkv_dense=before["flash_dkv_dense"] + 1):
+        fail(f"flash_dq_dense/flash_dkv_dense: the wrapper did not launch each kernel once "
+             f"({before} -> {fa.counts()})")
+    want = fa.reference_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False, scale)
+    errs = {}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            fail(f"{gname} (d 64): non-finite")
+        errs[gname] = ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+    del got, want
+    ms_wrapper = gpu_time_ms(
+        lambda: fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False),
+        iters=5)
+    plain_bwd = gpu_time_ms(lambda: fa.reference_attention_backward(
+        q, k, v, None, None, ref, ref_lse, dout, False, scale), iters=2, warmup=1)
+    call_dq, call_dkv = raw_bwd(q, k, v, dout, None, ref, ref_lse, causal=False)
+    ms_dq = graph_time_ms(call_dq, iters=10, replays=2)
+    ms_dkv = graph_time_ms(call_dkv, iters=10, replays=2)
+    lib_bwd = sdpa_backward_ms(sdpa, (qt, kt, vt), dout.transpose(1, 2), iters=5, replays=2)
+    traffic = backward_traffic(clips, s, h, h, d, None, None, causal=False)
+    b_dq, by_dq = roofline_ms(*traffic["flash_dq"])
+    b_dkv, by_dkv = roofline_ms(*traffic["flash_dkv"])
+    print(f"[vit-grad] flash_dq_dense/flash_dkv_dense {shape}: " + ", ".join(
+        f"{gname} max|d| {e:.3e} (max|plain| {mx:.3e})" for gname, (e, mx) in errs.items())
+        + f" (tol {GRAD_TOL} max|plain|); dq kernel {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}: "
+        f"{100 * b_dq / ms_dq:.1f}%), dkv kernel {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}: "
+        f"{100 * b_dkv / ms_dkv:.1f}%) (raw entry points, CUDA graph), wrapper with delta "
+        f"{ms_wrapper:.4f} ms, plain backward {plain_bwd:.4f} ms, sdpa backward (dq+dk+dv) "
+        f"{lib_bwd:.4f} ms (CUDA graph) [{card}]", flush=True)
+    for gname, (e, mx) in errs.items():
+        if e > GRAD_TOL * mx:
+            fail(f"{gname} (d 64): |kernel - plain| {e:.3e} > {GRAD_TOL} x {mx:.3e}")
+    for key, ms_k, b_k, by_k, gnames in (("flash_dq_dense", ms_dq, b_dq, by_dq, ("dq",)),
+                                         ("flash_dkv_dense", ms_dkv, b_dkv, by_dkv,
+                                          ("dk", "dv"))):
+        # the plain backward and the library backward compute dq, dk and dv together
+        records[key] = dict(ms=ms_k, wrapper_ms=ms_wrapper, plain_ms=plain_bwd, bound_ms=b_k,
+                            bound_by=by_k, library_ms=lib_bwd,
+                            max_abs_err=max(errs[g][0] for g in gnames),
+                            plain_and_library_cover="dq+dk+dv", wrapper_covers="dq+dk+dv")
+    return records
+
+
+def vit_grad_ragged_check(card):
+    """Phase 16a at the image tiles' S = 784 (5 tiles, 16 heads of 64): the
+    64-row tiles are ragged too (12.25 of them), where at S = 3136 only the
+    128-row ones are. Held to the plain versions like the main shape, not
+    timed."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, s, h, d = 5, 784, 16, 64
+    qkv = torch.randn((n, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn((n, s, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    ref, ref_lse = fa.reference_attention_lse(q, k, v, None, None, False, d ** -0.5)
+    excess = ((out.float() - ref.float()).abs() - ATTN_RTOL * ref.float().abs()).max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    got = fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False)
+    want = fa.reference_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False,
+                                           d ** -0.5)
+    rel = {n_: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for n_, g, w in zip(("dq", "dk", "dv"), got, want)}
+    finite = all(torch.isfinite(t).all() for t in (out, lse, *got))
+    print(f"[vit-grad] B2-lse, B3-d64, B4-d64 at the image tiles' ({n}, {s}, {h}, {d}): out "
+          f"excess over {ATTN_RTOL}|plain| {excess:.3e} (tol {ATTN_ATOL}), lse {err_lse:.3e} "
+          f"(tol {LSE_TOL}), max|d|/max|plain| " + ", ".join(f"{k_} {x:.3e}" for k_, x in rel.items())
+          + f" (tol {GRAD_TOL}), finite {finite} [{card}]", flush=True)
+    if not finite or excess > ATTN_ATOL or err_lse > LSE_TOL or max(rel.values()) > GRAD_TOL:
+        fail("vit-grad: the d 64 kernels disagree with their plain versions at S = 784")
+
+
+def tower_grads(tree, clips, w, pos, vcfg, wrt):
+    """Gradients of sum(encode_clips(tree, clips).float() * w) with respect
+    to the pixels and the stacked block leaves named in `wrt`, under
+    autograd from fresh leaves: {"pixels": g, name: g}."""
+    import torch
+
+    from blim_tpu_torch.models import umt_vit
+
+    leaves = _tree_map(lambda t: t.detach().requires_grad_(True), tree)
+    px = clips.detach().requires_grad_(True)
+    loss = (umt_vit.encode_clips(leaves, px, pos, vcfg).float() * w).sum()
+    grads = torch.autograd.grad(loss, [px] + [leaves["blocks"][n]["kernel"] for n in wrt])
+    return dict(zip(("pixels",) + tuple(wrt), grads))
+
+
+def vit_grad_tower_check(vit, cfg, card):
+    """Phase 16b: the tower's gradient through the kernels against the same
+    gradient through the plain attention (fp32, under autograd), at full
+    width, GRAD_VIT_LAYERS blocks and GRAD_VIT_CLIPS clips in bf16, on the
+    pixels and the first and last blocks' qkv and fc2 kernels; then the same
+    with a planted backward fault, which must exceed the limit."""
+    import math
+
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.kernels.attention import reference_attention
+    from blim_tpu_torch.models import umt_vit
+
+    vcfg = cfg.vision
+    layers = GRAD_VIT_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    small = dict(vit, blocks=_tree_map(lambda t: t[:layers], vit["blocks"]))
+    pos = torch.from_numpy(np.asarray(umt_vit.build_pos_tables(vcfg)[0], np.float32)).cuda()
+    clips = torch.randn((GRAD_VIT_CLIPS, cfg.mm_local_num_frames, 3, vcfg.image_size,
+                         vcfg.image_size), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.5
+    w = torch.randn((GRAD_VIT_CLIPS, vcfg.num_frames * vcfg.patches_per_frame,
+                     vcfg.hidden_size), generator=gen, device="cuda")
+    wrt = ("qkv", "fc2")
+
+    def picked(g):
+        out = {"pixels": g["pixels"]}
+        for n in wrt:
+            out[f"{n}[0]"], out[f"{n}[{layers - 1}]"] = g[n][0], g[n][layers - 1]
+        return out
+
+    def gaps(got, want):
+        return {n: (got[n].float() - want[n].float()).abs().max().item()
+                / want[n].float().abs().max().item() for n in want}
+
+    fa.reset_counts()
+    kern = picked(tower_grads(small, clips, w, pos, vcfg, wrt))
+    k_counts = fa.counts()
+    kernel_mha = umt_vit.multi_head_attention
+    umt_vit.multi_head_attention = lambda q, k, v, *, causal, scale: reference_attention(
+        q.float(), k.float(), v.float(), None, None, causal, scale).to(q.dtype)
+    try:
+        fa.reset_counts()
+        plain = picked(tower_grads(small, clips, w, pos, vcfg, wrt))
+        p_counts = fa.counts()
+    finally:
+        umt_vit.multi_head_attention = kernel_mha
+    clean = gaps(kern, plain)
+
+    backward = fa.flash_attention_backward
+    faults = {
+        "lse + log 2": lambda q, k, v, km, qm, out, lse, dout, causal, scale: backward(
+            q, k, v, km, qm, out, lse + math.log(2.0), dout, causal, scale),
+        "dk and dv swapped": lambda *a: (lambda dq, dk, dv: (dq, dv, dk))(*backward(*a)),
+    }
+    planted = {}
+    for name, fault in faults.items():
+        fa.flash_attention_backward = fault
+        try:
+            planted[name] = max(gaps(picked(tower_grads(small, clips, w, pos, vcfg, wrt)),
+                                     plain).values())
+        finally:
+            fa.flash_attention_backward = backward
+    expected = dict({k: 0 for k in k_counts}, flash_fwd_dense_lse=layers,
+                    flash_dq_dense=layers, flash_dkv_dense=layers)
+    print(f"[vit-grad] tower gradient, {layers} blocks at full width, {GRAD_VIT_CLIPS} clips, "
+          f"bf16: kernels vs plain attention (fp32) max|d|/max|plain| "
+          + ", ".join(f"{n} {g:.3e}" for n, g in clean.items())
+          + f" (tol {GRAD_TOL}); planted " + ", ".join(f"{n} {g:.3e}" for n, g in planted.items())
+          + f" (each must exceed {GRAD_TOL}); launches {k_counts} (expected {expected}), plain "
+          f"{p_counts} [{card}]", flush=True)
+    if not all(torch.isfinite(g).all() for g in kern.values()):
+        fail("vit-grad: non-finite gradient through the kernels")
+    if k_counts != expected or any(p_counts.values()):
+        fail(f"vit-grad: launches {k_counts} / {p_counts}, expected {expected} / none")
+    if max(clean.values()) > GRAD_TOL:
+        fail(f"vit-grad: the tower's gradient through the kernels is off the plain one ({clean})")
+    if min(planted.values()) <= GRAD_TOL:
+        fail(f"vit-grad: a planted backward fault stays inside the limit ({planted})")
+    return dict(clean=clean, planted=planted)
+
+
+def vit_grad_tower_timed(vit, cfg, card):
+    """Phase 16c: the whole tower (every block the truncation keeps) forward
+    and backward at VIT_CLIPS clips, with respect to the pixels and every
+    leaf: one untimed run, then VIT_GRAD_TIMED timed ones, each launching
+    B2-lse, B3-d64 and B4-d64 once a block and no other kernel."""
+    import torch
+
+    from blim_tpu_torch.kernels import flash_attention as fa
+    from blim_tpu_torch.models import umt_vit
+
+    vcfg = cfg.vision
+    depth = vit["blocks"]["qkv"]["kernel"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pos = torch.from_numpy(np.asarray(umt_vit.build_pos_tables(vcfg)[0], np.float32)).cuda()
+    clips = torch.randn((VIT_CLIPS, cfg.mm_local_num_frames, 3, vcfg.image_size,
+                         vcfg.image_size), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.5
+    w = torch.randn((VIT_CLIPS, vcfg.num_frames * vcfg.patches_per_frame, vcfg.hidden_size),
+                    generator=gen, device="cuda")
+    leaves = _tree_map(lambda t: t.detach().requires_grad_(True), vit)
+    params = list(_leaves(leaves))
+
+    def step():
+        px = clips.detach().requires_grad_(True)
+        loss = (umt_vit.encode_clips(leaves, px, pos, vcfg).float() * w).sum()
+        return torch.autograd.grad(loss, [px] + params)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 2**30
+    times, runs = [], []
+    for _ in range(VIT_GRAD_TIMED):
+        fa.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grads = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        runs.append(fa.counts())
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = dict({k: 0 for k in runs[0]}, flash_fwd_dense_lse=depth, flash_dq_dense=depth,
+                    flash_dkv_dense=depth)
+    finite = all(torch.isfinite(g).all() for g in grads)
+    ms = 1e3 * float(np.mean(times))
+    print(f"[vit-grad] whole tower ({depth} blocks) forward + backward at {VIT_CLIPS} clips "
+          f"(pixels and {len(params)} leaves): {ms:.1f} ms (mean of {VIT_GRAD_TIMED} after one "
+          f"untimed; {', '.join(f'{1e3 * t:.1f}' for t in times)}), peak {peak_gb:.2f} GiB "
+          f"({resident_gb:.2f} GiB of it resident before), every gradient finite: {finite}; "
+          f"launches a run {runs[0]} (expected {expected}) [{card}]", flush=True)
+    if not finite:
+        fail("vit-grad: a non-finite gradient through the whole tower")
+    if any(c != expected for c in runs):
+        fail(f"vit-grad: launches {runs} != expected {expected} a run")
+    return dict(launches=runs[-1], ms=ms, peak_gib=peak_gb)
+
+
+def phase_vit_grad(vit, cfg, card):
+    """Phase 16: the UMT tower's gradient on the card."""
+    import torch
+
+    t0 = time.time()
+    records = vit_grad_kernels(card)
+    vit_grad_ragged_check(card)
+    torch.cuda.empty_cache()
+    check = vit_grad_tower_check(vit, cfg, card)
+    torch.cuda.empty_cache()
+    tower = vit_grad_tower_timed(vit, cfg, card)
+    print(f"[time] phase 16 (vit-grad) took {time.time() - t0:.1f}s", flush=True)
+    return dict(records=records, check=check, tower=tower)
 
 
 def hf_config_json(cfg):
@@ -3821,6 +4192,7 @@ def main():
     vit_record = phase_vit_kernel(card)
     extract_st = phase_extract(card)
     print(f"[time] phases 9-10 (vit kernel, extract) took {time.time() - t0:.1f}s", flush=True)
+    vit_grad = phase_vit_grad(extract_st.pop("vit"), extract_st.pop("cfg"), card)
     torch.cuda.empty_cache()
     phase_cli(card)
     chat_b1, chat_b2 = phase_chat(card)
@@ -3851,6 +4223,13 @@ def main():
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
                     "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
                     "chat": chat_b2})
+    for name, source, line in (("flash_fwd_dense_lse", "flash_fwd.cu", "121"),
+                               ("flash_dq_dense", "flash_bwd.cu", "195"),
+                               ("flash_dkv_dense", "flash_bwd.cu", "252")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": ref + line, "launches": vit_grad["tower"]["launches"][name],
+                        **vit_grad["records"][name]})
+    kernels[-3]["tower_fwd_bwd_ms"] = vit_grad["tower"]["ms"]
     print(f"[time] the whole script took {time.time() - t_script:.1f}s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

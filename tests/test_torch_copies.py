@@ -3,7 +3,7 @@
 collation and loader, dataset helpers, presets, metric logging, pack
 schedulers, the rank-row shard arithmetic, recall and fusion, the results
 table, every conversation template, the chat's frame sampling, the
-feature-pack reader's C++ source).
+feature-pack reader's C++ source, bench.py's caption generator).
 Each copy is pinned equal to its original here; the extraction slice's copies (the ViT's position tables and resize
 matrices, the image processor, the frame sampling, chunking and the feature
 store) are pinned in tests/test_torch_vit.py and tests/test_torch_extract.py."""
@@ -679,3 +679,23 @@ def test_peak_flops_reads_a_torch_device(monkeypatch):
         monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None, _n=name: _n)
         assert tflops.peak_flops_per_chip("cuda") == want, name
         assert tflops.peak_flops_per_chip(torch.device("cuda", 0)) == want, name
+
+
+@pytest.mark.parametrize("copy", ["scripts/analyze_schedule_torch.py", "chip_smoke.py"])
+@pytest.mark.parametrize("seed,n,budget", [(0, 64, 96), (3, 200, 20), (7, 50, 8)])
+def test_caption_generator_copies_match_bench(copy, seed, n, budget):
+    """The port's schedule analyser and chip_smoke.py keep their own copy of
+    bench.py's synthetic caption generator: the same words and, from the same
+    rng, the same captions."""
+    import importlib.util
+    from pathlib import Path
+
+    import bench
+
+    path = Path(__file__).resolve().parents[1] / copy
+    spec = importlib.util.spec_from_file_location(f"_copy_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert module.WORDS == bench.WORDS
+    got = module.make_captions(n, np.random.default_rng(seed), budget)
+    assert len(got) == n and got == bench.make_captions(n, np.random.default_rng(seed), budget)

@@ -142,7 +142,7 @@ def _imports(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((REPO / "blim_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py",
-        REPO / "scripts" / "parity_torch.py"]
+        REPO / "scripts" / "parity_torch.py", REPO / "scripts" / "analyze_schedule_torch.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("adapters/lora", "checkpoints/convert", "checkpoints/safetensors_io",
@@ -160,7 +160,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "blim_tpu", "flax", "optax"), (f, mod)
+            assert root not in ("jax", "jaxlib", "blim_tpu", "flax", "optax", "bench"), (f, mod)
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

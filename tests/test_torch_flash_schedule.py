@@ -26,7 +26,11 @@ exponentials as exp2 of one FMA of the unscaled score with scale * log2(e)
 and lse * log2(e) (fp64); invisible pairs given p = 0; P and dS rounded to
 bf16 before their products; each cluster rank's partial dK, dV over its q
 heads of the GQA group, summed in rank order. It is held to
-`reference_attention_backward` with chip_smoke.py's GRAD_TOL.
+`reference_attention_backward` with chip_smoke.py's GRAD_TOL, at the train
+step's d = 128 masks and at the ViT's d = 64 dense non-causal mode (every
+kv tile against every q tile, a GQA group of 1 and so a cluster of 1 CTA
+whose rank-order sum is its own partial; S = 3136 leaves a ragged last
+128-row tile, S = 784, the image tiles', ragged 64-row tiles too).
 """
 
 import math
@@ -44,6 +48,16 @@ BQ = BK = 128                 # q rows per CTA, kv rows per tile
 DQ_ROWS, DQ_KV = 128, 64      # flash_dq: q rows a CTA, kv rows a tile
 DKV_ROWS, DKV_Q = 128, 64     # flash_dkv: kv rows a CTA, q rows a tile
 LOG2E = 1.4426950408889634
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tile-by-tile models are thousands of small ops: one intra-op
+    thread keeps them from contending with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _f32(x: float) -> float:
@@ -146,11 +160,13 @@ def scheduled_backward(q, k, v, key_mask, query_mask, out, lse, dout, causal=Tru
             p = p.masked_fill(~vis, 0.0)
         return p, p * (dp - delta[:, qh][:, :, rows, None])
 
+    # tiles of one kernel are independent CTAs: without causality each sees
+    # the same tiles of the other side, so the model takes them all at once
     heads = torch.arange(hq)
     dq = torch.zeros((b, hq, sp, d))
-    for qt in range(sp // DQ_ROWS):
-        rows = torch.arange(qt * DQ_ROWS, (qt + 1) * DQ_ROWS)
-        n_kv = -(-s // DQ_KV)
+    n_kv = -(-s // DQ_KV)
+    for qt in range(sp // DQ_ROWS if causal else 1):
+        rows = torch.arange(qt * DQ_ROWS, (qt + 1) * DQ_ROWS) if causal else torch.arange(sp)
         for kt in range(min(2 * qt + 2, n_kv) if causal else n_kv):
             cols = torch.arange(kt * DQ_KV, (kt + 1) * DQ_KV)
             _, ds = p_and_ds(heads, heads // grp, rows, cols)
@@ -159,13 +175,13 @@ def scheduled_backward(q, k, v, key_mask, query_mask, out, lse, dout, causal=Tru
     cl = _cluster_size(grp)
     dk = torch.zeros((b, hkv, sp, d))
     dv = torch.zeros((b, hkv, sp, d))
-    for kt in range(sp // DKV_ROWS):
-        cols = torch.arange(kt * DKV_ROWS, (kt + 1) * DKV_ROWS)
+    for kt in range(sp // DKV_ROWS if causal else 1):
+        cols = torch.arange(kt * DKV_ROWS, (kt + 1) * DKV_ROWS) if causal else torch.arange(sp)
         j0 = 2 * kt if causal else 0
         parts = []
         for rank in range(cl):                          # one CTA of the cluster each
-            pk = torch.zeros((b, hkv, DKV_ROWS, d))
-            pv = torch.zeros((b, hkv, DKV_ROWS, d))
+            pk = torch.zeros((b, hkv, len(cols), d))
+            pv = torch.zeros((b, hkv, len(cols), d))
             for i in range(grp // cl):
                 qh = torch.arange(hkv) * grp + i * cl + rank
                 for j in range(j0, -(-s // DKV_Q)):
@@ -255,34 +271,40 @@ def test_fully_masked_rows_stay_finite_only_with_a_power_of_two_masked_logit():
         assert (exponent == 0.0) == exact
 
 
-# name -> (B, S, Hq, Hkv, mask maker): the train step's backward shapes with
-# one kv head's worth of the 7B's GQA group of 7 (Hq 14, Hkv 2), and the
-# forward's other masks; one case at a group of 4 (a cluster of 4)
+# name -> (B, S, Hq, Hkv, d, causal, mask maker): the train step's backward
+# shapes with one kv head's worth of the 7B's GQA group of 7 (Hq 14, Hkv 2),
+# and the forward's other masks; one case at a group of 4 (a cluster of 4);
+# the ViT's dense non-causal d = 64 at one clip of 2 heads (group 1, a
+# cluster of 1), and at the image tiles' S = 784
 BACKWARD_CASES = {
-    "VTG S=448 right pads": (4, 448, 14, 2, lambda rng: _vtg_mask(448)),
-    "TVG S=256 left pads": (4, 256, 14, 2, lambda rng: _tvg_mask(256)),
-    "S=341 CPN holes": (4, 341, 14, 2, lambda rng: _holes_mask(rng, 4, 341)),
-    "S=341 dense causal": (2, 341, 14, 2, lambda rng: None),
-    "S=200 right pads": (2, 200, 14, 2, lambda rng: _vtg_mask(200)[:2]),
-    "S=200 right pads group 4": (2, 200, 8, 2, lambda rng: _vtg_mask(200)[:2]),
+    "VTG S=448 right pads": (4, 448, 14, 2, 128, True, lambda rng: _vtg_mask(448)),
+    "TVG S=256 left pads": (4, 256, 14, 2, 128, True, lambda rng: _tvg_mask(256)),
+    "S=341 CPN holes": (4, 341, 14, 2, 128, True, lambda rng: _holes_mask(rng, 4, 341)),
+    "S=341 dense causal": (2, 341, 14, 2, 128, True, lambda rng: None),
+    "S=200 right pads": (2, 200, 14, 2, 128, True, lambda rng: _vtg_mask(200)[:2]),
+    "S=200 right pads group 4": (2, 200, 8, 2, 128, True, lambda rng: _vtg_mask(200)[:2]),
+    "ViT S=3136 dense d=64 group 1": (1, 3136, 2, 2, 64, False, lambda rng: None),
+    "image tiles S=784 dense d=64 group 1": (2, 784, 2, 2, 64, False, lambda rng: None),
 }
 
 
 def _backward_inputs(case):
-    b, s, hq, hkv, make_mask = BACKWARD_CASES[case]
+    b, s, hq, hkv, d, causal, make_mask = BACKWARD_CASES[case]
     rng = np.random.default_rng(100 + sorted(BACKWARD_CASES).index(case))
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(torch.bfloat16)  # noqa: E731
-    q, k, v, dout = t(b, s, hq, 128), t(b, s, hkv, 128), t(b, s, hkv, 128), t(b, s, hq, 128)
+    q, k, v, dout = t(b, s, hq, d), t(b, s, hkv, d), t(b, s, hkv, d), t(b, s, hq, d)
     mask = make_mask(rng)
-    out, lse = tfa.reference_attention_lse(q, k, v, mask, mask, True, 128 ** -0.5)
+    out, lse = tfa.reference_attention_lse(q, k, v, mask, mask, causal, d ** -0.5)
     return q, k, v, mask, out, lse, dout
 
 
 @pytest.mark.parametrize("case", list(BACKWARD_CASES))
 def test_scheduled_backward_matches_plain_version(case):
     q, k, v, mask, out, lse, dout = _backward_inputs(case)
-    got = scheduled_backward(q, k, v, mask, mask, out, lse, dout)
-    want = tfa.reference_attention_backward(q, k, v, mask, mask, out, lse, dout, True, 128 ** -0.5)
+    causal = BACKWARD_CASES[case][5]
+    scale = q.shape[-1] ** -0.5
+    got = scheduled_backward(q, k, v, mask, mask, out, lse, dout, causal)
+    want = tfa.reference_attention_backward(q, k, v, mask, mask, out, lse, dout, causal, scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, (case, name)
         assert torch.isfinite(g.float()).all(), (case, name)
@@ -319,6 +341,32 @@ def test_backward_bound_counts_every_byte_at_the_vtg_shape():
     assert by == "bytes" and ms == pytest.approx(0.01272, abs=1e-5)
     ms, by = chip_smoke.roofline_ms(dkv_bytes, dkv_flops)
     assert by == "bytes" and ms == pytest.approx(0.00998, abs=1e-5)
+
+
+def test_dense_bounds_at_the_vit_shape():
+    """Every pair visible at 8 clips of (3136, 16, 64): B2-lse 4 d flops a
+    pair, 3.22e11 (0.3258 ms), B3-d64 6 d, 4.83e11 (0.4888 ms), B4-d64 8 d,
+    6.45e11 (0.6517 ms), all bound by operations; B3-d64's ~0.26 GB of
+    bytes (q, dO, k, v, lse, delta, dq) would take 0.078 ms."""
+    clips, s, h, d = 8, 3136, 16, 64
+    pairs = clips * h * s * s
+    ms, by = chip_smoke.vit_attention_bound_ms(clips, s, h, d, with_lse=True)
+    assert by == "operations" and ms == pytest.approx(0.3258, abs=1e-4)
+    traffic = chip_smoke.backward_traffic(clips, s, h, h, d, None, None, causal=False)
+    dq_bytes, dq_flops = traffic["flash_dq"]
+    dkv_bytes, dkv_flops = traffic["flash_dkv"]
+    assert dq_flops == 6.0 * d * pairs == pytest.approx(4.83e11, rel=1e-3)
+    assert dkv_flops == 8.0 * d * pairs == pytest.approx(6.45e11, rel=1e-3)
+    one = 2 * clips * s * h * d                   # bf16 q, dO, k, v, dq, dk or dv
+    stats = 2 * 4 * clips * h * s                 # fp32 lse and delta, no mask
+    assert dq_bytes == 5 * one + stats and dkv_bytes == 6 * one + stats
+    assert dq_bytes / chip_smoke.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.078, abs=1e-3)
+    for (nbytes, flops), want in ((traffic["flash_dq"], 0.4888), (traffic["flash_dkv"], 0.6517)):
+        ms, by = chip_smoke.roofline_ms(nbytes, flops)
+        assert by == "operations" and ms == pytest.approx(want, abs=1e-4)
+    # causal without masks counts the triangle, as the forward's bound does
+    causal = chip_smoke.backward_traffic(1, s, h, h, d, None, None)
+    assert causal["flash_dq"][1] == 6.0 * d * h * (s * (s + 1) // 2)
 
 
 def test_editing_the_shared_header_rebuilds_both_libraries(monkeypatch, tmp_path):

@@ -257,12 +257,19 @@ def test_b2_plain_reads_strided_views_of_a_packed_qkv(rng):
 
 
 def test_head_dim_64_dispatch_off_the_cpu():
-    """Off the CPU a d = 64 tensor goes to B2 or raises: with a gradient
-    (no backward kernels at d = 64), and on any device the kernels do not
-    run on; B1 refuses d = 64 (masks or causal)."""
+    """Off the CPU a d = 64 tensor goes to the kernels or raises. Dense and
+    non-causal with a gradient it reaches B2-lse's launch (which refuses a
+    meta tensor); with masks or causal and a gradient it raises naming the
+    head dim, since the d = 64 kernels take only the ViT's mode; without a
+    gradient it goes to B2, and B1 refuses d = 64 (masks or causal)."""
     q = torch.empty((1, 8, 2, 64), device="meta")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         multi_head_attention(q.requires_grad_(True), q, q, causal=False)
+    mask = torch.ones((1, 8), dtype=torch.int32, device="meta")
+    for kw in (dict(causal=True), dict(causal=False, key_mask=mask),
+               dict(causal=False, query_mask=mask)):
+        with pytest.raises(ValueError, match="head dim 64"):
+            multi_head_attention(q, q, q, **kw)
     q = torch.empty((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         multi_head_attention(q, q, q, causal=False)           # -> B2, refuses meta
@@ -283,7 +290,8 @@ def test_operand_checks_name_the_head_dim():
 def test_counts_report_b2():
     tfa.reset_counts()
     assert tfa.counts() == {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_fwd_dense": 0,
-                            "flash_dq": 0, "flash_dkv": 0}
+                            "flash_fwd_dense_lse": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_dq_dense": 0, "flash_dkv_dense": 0}
 
 
 # ---------------------------------------------------------------------------
