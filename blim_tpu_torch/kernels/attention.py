@@ -79,7 +79,7 @@ def multi_head_attention(
     plain versions inside the same autograd Function. A CUDA tensor at head
     dim 64 with causal=False and no masks (the UMT ViT) goes to B2, or, when
     it needs a gradient, to the same Function's d = 64 kernels (B2-lse
-    forward, B3-d64 and B4-d64 backward); at head dim 64 with masks or
+    forward, the fused flash_bwd_dense backward); at head dim 64 with masks or
     causal=True there are no kernels, and such a CUDA tensor raises. Any
     other CUDA tensor goes to the inference kernel B1, whatever its size
     (the JAX wrapper's small-problem gate does not apply), which raises on a

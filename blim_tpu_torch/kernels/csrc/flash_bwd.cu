@@ -1,18 +1,16 @@
-// Flash-attention backward for Hopper (sm_90a): dq (flash_dq), and dk/dv
-// (flash_dkv), for the attention of flash_fwd.cu. One template over the
-// head dim: d = 128 (the 7B decoder: causal or full, masked or dense, GQA)
-// and d = 64 (the UMT ViT: dense, non-causal, one q head a K/V head only).
-// bf16 in, fp32 accumulate, bf16 out.
+// Flash-attention backward for Hopper (sm_90a) at head dim 128: dq
+// (flash_dq), and dk/dv (flash_dkv), for the attention of flash_fwd.cu at
+// d = 128 (the 7B decoder: causal or full, masked or dense, GQA). bf16 in,
+// fp32 accumulate, bf16 out. The kernels keep the head dim as a template
+// parameter (kD / 64 halves of 64 columns a tile) but instantiate d = 128
+// only: the d = 64 backward (the UMT ViT's) is flash_bwd_dense.cu, one fused
+// kernel.
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_dq_kernel` (:195-249,
 // launched by `_flash_backward` -> pl.pallas_call :361-376) and
 // `_dkv_kernel` (:252-331, pl.pallas_call :391-412), run through `_vjp_bwd`
-// (:442-446) in two uses:
-//   * B3, B4 (d = 128): every attention call of the 7B in the LoRA train
-//     step, in both the VTG and the TVG direction;
-//   * B3-d64, B4-d64: every attention of the UMT ViT-L tower when the tower
-//     is differentiated (umt_vit.encode_clips under autograd), dense
-//     (:357-360, :378-383) and non-causal, 16 q heads on 16 K/V heads.
+// (:442-446) as B3 and B4: every attention call of the 7B in the LoRA train
+// step, in both the VTG and the TVG direction.
 //
 // Math, the same as the TPU kernels and the plain version
 // (kernels/flash_attention.py::reference_attention_backward). Inputs: q, k,
@@ -39,12 +37,6 @@
 // ~7.1 GFLOP or ~7.1 us. flash_dkv reads q, dO, k, v, lse, delta and writes
 // dk, dv: ~33.4 MB (~10.0 us) against 4 products, ~9.4 GFLOP (~9.5 us).
 // Both are bound by bytes, within 1.8x and 1.05x of their flop floors.
-// At the ViT's shape (8 clips of S = 3136, 16 heads of 64, every pair
-// visible) the same products come to 3 x 2 x 64 x 3136^2 x 16 x 8 = 0.48
-// TFLOP for flash_dq (0.49 ms) and 0.65 TFLOP for flash_dkv (0.65 ms)
-// against ~0.26 GB of bytes (0.08 ms): bound by operations, and at d = 64
-// the exponentials (one a pair, in both kernels) cost as much as the
-// products, as in the forward (flash_fwd.cu).
 //
 // Design (FlashAttention-3's shape, the forward's machinery in hopper.cuh):
 // three warpgroups a CTA, two consumers of 64 rows each and a producer whose
@@ -83,17 +75,11 @@
 //   * Causal: tiles wholly past the diagonal are skipped; the diagonal
 //     tiles, the ragged edge (rows beyond S come back from TMA as zeros and
 //     are invisible) and, with a key mask, every tile are masked.
-//   * d = 64 (the ViT) is the same code with one 64-column half a tile:
-//     dQ is 32 fp32 registers a thread, dK and dV 32 + 32. Its GQA group is
-//     1, so flash_dkv's cluster is 1 CTA and the group's sum reads only the
-//     CTA's own partials (mapa of rank 0 is its own shared memory) between
-//     the same barriers. Without causality every kv tile sees every q tile,
-//     so the grid puts a (batch, head)'s kv tiles side by side, as flash_dq
-//     its q tiles: the 25 CTAs that stream one head's Q and dO (0.8 MB a
-//     clip) run together and share them in L2, where the causal order
-//     (tile-major) would read them from HBM once a CTA, 2.5 GB at 8 clips.
-//     S = 3136 leaves a ragged last 128-row tile (24.5 tiles) on both
-//     kernels' own side, handled as the causal path handles it.
+//   * Without causality every kv tile sees every q tile, so the grid puts a
+//     (batch, head)'s kv tiles side by side, as flash_dq its q tiles: the
+//     CTAs that stream one head's Q and dO run together and share them in
+//     L2, where the causal order (tile-major) would read them from HBM once
+//     a CTA.
 
 #include "hopper.cuh"
 
@@ -104,8 +90,7 @@ constexpr int kThreads = (kConsumers + 1) * 128;
 // setmaxnreg's split of the 168 registers a thread gets at entry:
 // (168 - 40) x 128 = (232 - 168) x 256 for flash_dq; flash_dkv's consumers
 // hold dK and dV (128 fp32 at d = 128) besides S^T and dP^T (64) and take
-// 240. The 384-thread launch bound keeps one CTA an SM at either head dim,
-// so d = 64, whose consumers need less (dK, dV 64 fp32), keeps the split.
+// 240. The 384-thread launch bound keeps one CTA an SM.
 constexpr int kDqProducerRegs = 40;
 constexpr int kDqConsumerRegs = 232;
 constexpr int kDkvProducerRegs = 24;
@@ -687,12 +672,10 @@ Params make_params(const float* lse, const float* delta, const int* key_mask, in
   return p;
 }
 
-// The head dims and modes with an instantiation: d = 128 in every mode;
-// d = 64 dense (no key mask) and non-causal only, the ViT's.
-bool valid(int batch, int seq_len, int num_q_heads, int num_kv_heads, int head_dim,
-           const int* key_mask, int causal) {
-  const bool mode = head_dim == 128 || (head_dim == 64 && key_mask == nullptr && !causal);
-  return mode && batch > 0 && seq_len > 0 && num_kv_heads > 0 && num_q_heads % num_kv_heads == 0;
+// The head dim with an instantiation: d = 128, in every mode.
+bool valid(int batch, int seq_len, int num_q_heads, int num_kv_heads, int head_dim) {
+  return head_dim == 128 && batch > 0 && seq_len > 0 && num_kv_heads > 0 &&
+         num_q_heads % num_kv_heads == 0;
 }
 
 template <int kD, bool kMasked>
@@ -759,10 +742,10 @@ bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, c
 // as the ViT's slices of its packed qkv are read in place); lse and delta
 // fp32 (B, Hq, S) contiguous; key_mask int32 (B, S) with unit stride along S
 // and row stride mask_sb, or null for the dense variant; the outputs bf16
-// with the strides given and a contiguous last dim. head_dim 128 takes every
-// mode; head_dim 64 only the dense non-causal one. Each launches on `stream`
-// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for a mode that has no instantiation or operands that TMA cannot describe.
+// with the strides given and a contiguous last dim. head_dim must be 128
+// (any mode). Each launches on `stream` and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for another head dim or operands that
+// TMA cannot describe.
 extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, const int* key_mask,
                              void* dq, int batch, int seq_len, int num_q_heads,
@@ -774,7 +757,7 @@ extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const 
                              long long dq_sb, long long dq_ss, long long dq_sh,
                              long long mask_sb, float scale, int causal, void* stream) {
   CUtensorMap maps[4];
-  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim, key_mask, causal) ||
+  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim) ||
       !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, head_dim, q_sb,
                  q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDqRows,
                  kDqKv)) {
@@ -785,7 +768,6 @@ extern "C" int blim_flash_dq(const void* q, const void* k, const void* v, const 
   p.out0 = static_cast<bf16*>(dq);
   p.o0_sb = dq_sb; p.o0_ss = dq_ss; p.o0_sh = dq_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return (int)launch_dq<64, false>(maps, p, st);
   return (int)(key_mask ? launch_dq<128, true>(maps, p, st) : launch_dq<128, false>(maps, p, st));
 }
 
@@ -801,7 +783,7 @@ extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const
                               long long dv_sb, long long dv_ss, long long dv_sh,
                               long long mask_sb, float scale, int causal, void* stream) {
   CUtensorMap maps[4];
-  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim, key_mask, causal) ||
+  if (!valid(batch, seq_len, num_q_heads, num_kv_heads, head_dim) ||
       !make_maps(maps, q, k, v, dout, batch, seq_len, num_q_heads, num_kv_heads, head_dim, q_sb,
                  q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, kDkvQ,
                  kDkvRows)) {
@@ -814,7 +796,6 @@ extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const
   p.o0_sb = dk_sb; p.o0_ss = dk_ss; p.o0_sh = dk_sh;
   p.o1_sb = dv_sb; p.o1_ss = dv_ss; p.o1_sh = dv_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return (int)launch_dkv<64, false>(maps, p, st);
   return (int)(key_mask ? launch_dkv<128, true>(maps, p, st) : launch_dkv<128, false>(maps, p, st));
 }
 
@@ -822,7 +803,6 @@ extern "C" int blim_flash_dkv(const void* q, const void* k, const void* v, const
 // if `dkv`, else flash_dq's (0 for a head dim without an instantiation).
 extern "C" int blim_flash_bwd_smem_bytes(int dkv, int head_dim) {
   if (head_dim == 128) return dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>();
-  if (head_dim == 64) return dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>();
   return 0;
 }
 

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd.cu and flash_bwd.cu:
-// mbarriers, TMA loads through 4-D tensor maps over (d, S, H, B), wgmma
-// descriptors and wrappers for 128B-swizzled 64-column tiles, the
+// Hopper (sm_90a) building blocks shared by flash_fwd.cu, flash_bwd.cu and
+// flash_bwd_dense.cu: mbarriers, TMA loads through 4-D tensor maps over
+// (d, S, H, B), wgmma descriptors and wrappers for 128B-swizzled 64-column
+// tiles, named barriers, the bulk reduction into global memory, the
 // thread-block-cluster primitives, and the host-side tensor map encoder.
 // Each source includes it once and builds into its own library, so
 // everything here has internal linkage.
@@ -93,6 +94,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Returns once every committed group but the newest N has completed.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of wgmma registers across
 // the asynchronous window between issue and wait.
@@ -164,6 +170,59 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 64, fp32) (+)= A(64 x 16) B(16 x 64): A and B MN-major in shared
+// memory (A's rows the reduction dim, as B's in desc_mnmajor).
+__device__ __forceinline__ void wgmma_ss_n64_mnmajor(float (&d)[32], uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- named barriers, proxy fence, bulk reduction ---------------------------
+
+// `count` threads (a multiple of 32) take part; sync waits for all of them,
+// arrive only announces this thread's arrival.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later reads
+// by the async proxy (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// dst[i] += src[i] for `bytes` / 4 floats, from this CTA's shared memory into
+// global memory, in L2, as one asynchronous bulk operation of this thread's
+// bulk group; both addresses 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, int bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Returns once the source of every committed bulk group of this thread but
+// the newest N has been read (the shared memory may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// Returns once every committed bulk group of this thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- thread-block clusters ----------------------------------------------

@@ -1,30 +1,32 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels
-(csrc/flash_fwd.cu, csrc/flash_bwd.cu), their wrappers, their plain PyTorch
-versions and the autograd Function that joins them. Port of
-blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse (B1, the
-zero-shot prefix forwards, d = 128), with lse (B1-lse, `_vjp_fwd`), and in
-its dense non-causal mode at d = 64 without lse (B2, every attention of the
-UMT ViT) and with it (B2-lse, the ViT under autograd), `_dq_kernel` (B3; B3-d64
-dense non-causal), `_dkv_kernel` (B4; B4-d64), and the custom VJP
-`_flash_attention`.
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_dense.cu), their
+wrappers, their plain PyTorch versions and the autograd Function that joins
+them. Port of blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse
+(B1, the zero-shot prefix forwards, d = 128), with lse (B1-lse, `_vjp_fwd`),
+and in its dense non-causal mode at d = 64 without lse (B2, every attention
+of the UMT ViT) and with it (B2-lse, the ViT under autograd), `_dq_kernel`
+(B3) and `_dkv_kernel` (B4) at d = 128, both of them at d = 64 dense and
+non-causal as one fused kernel (flash_bwd_dense, between its preprocess and
+convert passes), and the custom VJP `_flash_attention`.
 
 Build. At first use a wrapper compiles its source with nvcc for sm_90a into
 a shared library with plain C entry points and loads it with ctypes. Each
 library lands in `blim_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of
 its source, the headers it includes (`csrc/hopper.cuh`) and the flags, so
-an edit rebuilds. `build()` compiles both
-sources at once, one nvcc each. A failed build raises: there is no fallback
-to the plain version on a CUDA tensor.
+an edit rebuilds. `build()` compiles every source at once, one nvcc each. A
+failed build raises: there is no fallback to the plain version on a CUDA
+tensor.
 
 Dispatch. A CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel or raises. The head dims the kernels take are those the sources
 instantiate: 128 in every mode (B1, B1-lse, B3, B4); 64 only dense (no
-masks) and non-causal (B2, B2-lse, B3-d64, B4-d64), the ViT's mode; any
+masks) and non-causal (B2, B2-lse, flash_bwd_dense), the ViT's mode; any
 other raises. The counters count kernel launches and nothing else:
 `launches` (B1, inference), `launches_lse` (B1-lse), `launches_dense` (B2),
 `launches_dense_lse` (B2-lse), `launches_dq` (B3), `launches_dkv` (B4),
-`launches_dq_dense` (B3-d64) and `launches_dkv_dense` (B4-d64). Callers
-reset them to 0 to check that a path went through the kernels.
+`launches_bwd_dense` (the fused d = 64 backward), `launches_bwd_dense_prep`
+and `launches_bwd_dense_convert` (its two passes). Callers reset them to 0
+to check that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -42,14 +44,16 @@ import torch
 from blim_tpu_torch.kernels.attention import NEG_INF, reference_attention
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
+SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu",
+           "flash_bwd_dense": CSRC / "flash_bwd_dense.cu"}
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIM = 128        # B1, B1-lse, B3, B4 (the 7B decoder)
-DENSE_HEAD_DIM = 64   # B2, B2-lse, B3-d64, B4-d64 (the UMT ViT-L: hidden 1024 over 16 heads)
+DENSE_HEAD_DIM = 64   # B2, B2-lse, flash_bwd_dense (the UMT ViT-L: hidden 1024 over 16 heads)
+DQ_TILE_ROWS = 64     # flash_bwd_dense's q tile: one tile of its fp32 dQ accumulator
 
 launches = 0          # B1 (no lse) launches since the caller last reset it
 launches_lse = 0      # B1-lse launches
@@ -57,23 +61,27 @@ launches_dense = 0    # B2 launches
 launches_dense_lse = 0  # B2-lse launches
 launches_dq = 0       # B3 launches
 launches_dkv = 0      # B4 launches
-launches_dq_dense = 0   # B3-d64 launches
-launches_dkv_dense = 0  # B4-d64 launches
+launches_bwd_dense = 0  # fused d = 64 backward launches
+launches_bwd_dense_prep = 0     # its preprocess pass's launches
+launches_bwd_dense_convert = 0  # its convert pass's launches
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_counts() -> None:
-    global launches, launches_lse, launches_dense, launches_dense_lse
-    global launches_dq, launches_dkv, launches_dq_dense, launches_dkv_dense
+    global launches, launches_lse, launches_dense, launches_dense_lse, launches_dq, launches_dkv
+    global launches_bwd_dense, launches_bwd_dense_prep, launches_bwd_dense_convert
     launches = launches_lse = launches_dense = launches_dense_lse = 0
-    launches_dq = launches_dkv = launches_dq_dense = launches_dkv_dense = 0
+    launches_dq = launches_dkv = 0
+    launches_bwd_dense = launches_bwd_dense_prep = launches_bwd_dense_convert = 0
 
 
 def counts() -> Dict[str, int]:
     return {"flash_fwd": launches, "flash_fwd_lse": launches_lse,
             "flash_fwd_dense": launches_dense, "flash_fwd_dense_lse": launches_dense_lse,
             "flash_dq": launches_dq, "flash_dkv": launches_dkv,
-            "flash_dq_dense": launches_dq_dense, "flash_dkv_dense": launches_dkv_dense}
+            "flash_bwd_dense": launches_bwd_dense,
+            "flash_bwd_dense_prep": launches_bwd_dense_prep,
+            "flash_bwd_dense_convert": launches_bwd_dense_convert}
 
 
 def _nvcc() -> str:
@@ -143,7 +151,7 @@ def _library(name: str) -> ctypes.CDLL:
             lib.blim_flash_fwd_smem_bytes.restype = i32
             lib.blim_cuda_error_string.argtypes = [i32]
             lib.blim_cuda_error_string.restype = ctypes.c_char_p
-        else:
+        elif name == "flash_bwd":
             lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 16 + [f32, i32, ptr]
             lib.blim_flash_dq.restype = i32
             lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 19 + [f32, i32, ptr]
@@ -154,6 +162,17 @@ def _library(name: str) -> ctypes.CDLL:
             lib.blim_flash_dkv_cluster_occupancy.restype = i32
             lib.blim_flash_bwd_error_string.argtypes = [i32]
             lib.blim_flash_bwd_error_string.restype = ctypes.c_char_p
+        else:
+            lib.blim_flash_bwd_dense_prep.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 6 + [ptr]
+            lib.blim_flash_bwd_dense_prep.restype = i32
+            lib.blim_flash_bwd_dense.argtypes = [ptr] * 9 + [i32] * 3 + [i64] * 18 + [f32, ptr]
+            lib.blim_flash_bwd_dense.restype = i32
+            lib.blim_flash_bwd_dense_convert.argtypes = [ptr] * 2 + [i32] * 3 + [i64] * 3 + [f32, ptr]
+            lib.blim_flash_bwd_dense_convert.restype = i32
+            lib.blim_flash_bwd_dense_smem_bytes.argtypes = []
+            lib.blim_flash_bwd_dense_smem_bytes.restype = i32
+            lib.blim_flash_bwd_dense_error_string.argtypes = [i32]
+            lib.blim_flash_bwd_dense_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
 
@@ -287,6 +306,41 @@ def reference_attention_backward(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dq_accumulator_order(device=None) -> torch.Tensor:
+    """Where flash_bwd_dense keeps each element of a (64, 64) dQ tile among
+    the tile's 4096 floats in its fp32 accumulator: entry (r, c) is the
+    offset of q row r, column c. Float4 (j, t) holds what consumer thread t
+    holds after its dQ product: columns 8j + 2(t % 4) + {0, 1} of rows
+    16(t // 32) + (t % 32) // 4 and that + 8, so its stores are
+    conflict-free (csrc/flash_bwd_dense.cu, dq_acc_offset)."""
+    r = torch.arange(DQ_TILE_ROWS, device=device)[:, None]
+    c = torch.arange(DENSE_HEAD_DIM, device=device)[None, :]
+    t = 32 * (r // 16) + 4 * (r % 8) + (c % 8) // 2
+    return ((c // 8) * 128 + t) * 4 + 2 * ((r % 16) // 8) + c % 2
+
+
+def reference_bwd_dense_prep(out: torch.Tensor, dout: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of flash_bwd_dense's preprocess: delta =
+    rowsum(dO * O) in fp32, (B, H, S), and the fp32 dQ accumulator (B, H,
+    ceil(S / 64), 4096) filled with zeros."""
+    b, s, h, d = out.shape
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    acc = torch.zeros((b, h, -(-s // DQ_TILE_ROWS), DQ_TILE_ROWS * d), dtype=torch.float32,
+                      device=out.device)
+    return delta, acc
+
+
+def reference_bwd_dense_convert(acc: torch.Tensor, seq_len: int, scale: float) -> torch.Tensor:
+    """The plain version of flash_bwd_dense's convert: dq (B, S, H, 64) in
+    bf16, scale times the accumulator's rows < S, read through
+    dq_accumulator_order."""
+    b, h, n_q, _ = acc.shape
+    tiles = acc[..., dq_accumulator_order(acc.device)]              # (B, H, n_q, 64, 64)
+    rows = tiles.reshape(b, h, n_q * DQ_TILE_ROWS, DENSE_HEAD_DIM)[:, :, :seq_len]
+    return (rows * scale).to(torch.bfloat16).transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -395,45 +449,122 @@ def flash_attention_backward(
     """B3 + B4 (`_flash_backward`): dO times the query mask and delta =
     rowsum(dO * O) in fp32 are two torch ops, as they were XLA outside Pallas;
     then B3 writes dq and B4 writes dk and dv. At head dim 64 without masks
-    and not causal (the ViT's mode) they are B3-d64 and B4-d64. q, k and v
-    are read in place at every head dim (the TMA maps take their strides, so
-    the ViT's strided views of its packed qkv need no copy). Same signature
-    and result as reference_attention_backward, which a CPU tensor takes."""
-    global launches_dq, launches_dkv, launches_dq_dense, launches_dkv_dense
+    and not causal (the ViT's mode, one q head a K/V head) the fused kernel
+    writes all three between its preprocess and convert passes
+    (_flash_attention_backward_dense). q, k and v are read in place at every
+    head dim (the TMA maps take their strides, so the ViT's strided views of
+    its packed qkv need no copy). Same signature and result as
+    reference_attention_backward, which a CPU tensor takes."""
+    global launches_dq, launches_dkv
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention_backward(q, k, v, key_mask, query_mask, out, lse, dout,
                                             causal, scale)
     dev = _cuda_device(q, "flash_attention_backward")
-    head_dim = kernel_head_dim(q, key_mask, query_mask, causal)
+    if kernel_head_dim(q, key_mask, query_mask, causal) == DENSE_HEAD_DIM:
+        return _flash_attention_backward_dense(q, k, v, out, lse, dout, scale)
     g = _mask_grad(dout, query_mask).to(q.dtype).contiguous()
     delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # (B, Hq, S)
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", g)):
-        _check_operand(name, t, dev, head_dim)
+        _check_operand(name, t, dev)
     _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
-    if lse.shape != (b, hq, s) or lse.dtype != torch.float32 or lse.device != dev:
-        raise ValueError(f"lse must be fp32 {(b, hq, s)} on {dev}, got {lse.dtype} "
-                         f"{tuple(lse.shape)} on {lse.device}")
+    _check_lse(lse, (b, hq, s), dev)
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     km = None if key_mask is None else _mask_operand(key_mask, (b, s), dev)
     dq, dk, dv, call_dq, call_dkv = _backward_calls(q, k, v, g, lse.contiguous(), delta, km,
                                                     scale, causal)
     error_string = _library("flash_bwd").blim_flash_bwd_error_string
-    dense = head_dim == DENSE_HEAD_DIM
     _raise_on(call_dq(), "flash_dq", error_string)
-    if dense:
-        launches_dq_dense += 1
-    else:
-        launches_dq += 1
+    launches_dq += 1
     _raise_on(call_dkv(), "flash_dkv", error_string)
-    if dense:
-        launches_dkv_dense += 1
-    else:
-        launches_dkv += 1
+    launches_dkv += 1
     return dq, dk, dv
+
+
+def _check_lse(lse: torch.Tensor, shape, device: torch.device) -> None:
+    if lse.shape != shape or lse.dtype != torch.float32 or lse.device != device:
+        raise ValueError(f"lse must be fp32 {shape} on {device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+
+
+def _in_place(t: torch.Tensor) -> torch.Tensor:
+    """t itself where a TMA map and 16-byte loads read it in place
+    (contiguous last dim, strides multiples of 8, 16-byte aligned), else a
+    contiguous copy."""
+    if t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
+def _flash_attention_backward_dense(q, k, v, out, lse, dout, scale):
+    """The d = 64 dense non-causal backward: flash_bwd_dense.cu's three
+    launches in stream order, the preprocess (delta, the accumulator
+    zeroed), the fused kernel (dk, dv, and every kv tile's dQ added into the
+    accumulator) and the convert (dq). One q head a K/V head (the ViT's);
+    dO and O are read in place where their strides allow."""
+    global launches_bwd_dense, launches_bwd_dense_prep, launches_bwd_dense_convert
+    dev = q.device
+    g, o = _in_place(dout.to(q.dtype)), _in_place(out)
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", g), ("out", o)):
+        _check_operand(name, t, dev, DENSE_HEAD_DIM)
+    if not q.shape == k.shape == v.shape == g.shape == o.shape:
+        raise ValueError(f"the d = {DENSE_HEAD_DIM} backward takes one q head a K/V head and "
+                         f"equal shapes: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} dout {tuple(g.shape)} out {tuple(o.shape)}")
+    b, s, h, _ = q.shape
+    _check_lse(lse, (b, h, s), dev)
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv, _, _, call_prep, call_bwd, call_convert = _dense_backward_calls(
+        q, k, v, g, o, lse.contiguous(), scale)
+    error_string = _library("flash_bwd_dense").blim_flash_bwd_dense_error_string
+    _raise_on(call_prep(), "flash_bwd_dense_prep", error_string)
+    launches_bwd_dense_prep += 1
+    _raise_on(call_bwd(), "flash_bwd_dense", error_string)
+    launches_bwd_dense += 1
+    _raise_on(call_convert(), "flash_bwd_dense_convert", error_string)
+    launches_bwd_dense_convert += 1
+    return dq, dk, dv
+
+
+def _dense_backward_calls(q, k, v, g, out, lse, scale):
+    """flash_bwd_dense.cu's three C entry points on prepared operands (q, k,
+    v, g = dO and out (B, S, H, 64) bf16 that the kernels read in place; lse
+    contiguous fp32 (B, H, S)): (dq, dk, dv, delta, acc, call_prep,
+    call_bwd, call_convert), the outputs contiguous. Each call launches one
+    kernel on the current stream and returns its CUDA error code; nothing
+    is checked or counted."""
+    lib = _library("flash_bwd_dense")
+    b, s, h, d = q.shape
+    dev = q.device
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=dev) for _ in range(3))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    acc = torch.empty((b, h, -(-s // DQ_TILE_ROWS), DQ_TILE_ROWS * d), dtype=torch.float32,
+                      device=dev)
+
+    def stream() -> int:
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def call_prep() -> int:
+        return lib.blim_flash_bwd_dense_prep(out.data_ptr(), g.data_ptr(), delta.data_ptr(),
+                                             acc.data_ptr(), b, s, h, *out.stride()[:3],
+                                             *g.stride()[:3], stream())
+
+    def call_bwd() -> int:
+        return lib.blim_flash_bwd_dense(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], float(scale), stream())
+
+    def call_convert() -> int:
+        return lib.blim_flash_bwd_dense_convert(acc.data_ptr(), dq.data_ptr(), b, s, h,
+                                                *dq.stride()[:3], float(scale), stream())
+
+    return dq, dk, dv, delta, acc, call_prep, call_bwd, call_convert
 
 
 def _backward_calls(q, k, v, g, lse, delta, key_mask, scale, causal):
@@ -474,8 +605,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     `_vjp_bwd`): the forward runs B1-lse and saves q, k, v, the masks, O and
     lse; the backward runs B3 and B4 and returns gradients for q, k, v only.
     At head dim 64, dense and not causal (the ViT's mode) the same ends run
-    B2-lse, B3-d64 and B4-d64. CPU tensors take the plain versions at both
-    ends."""
+    B2-lse and the fused flash_bwd_dense with its two passes. CPU tensors
+    take the plain versions at both ends."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, query_mask, causal, scale):

@@ -176,12 +176,16 @@ Phases, one line each (all numbers beside the card's name and power limit):
               unit-normal q, k, v and dO, against their plain versions at
               ATTN_ATOL / LSE_TOL / GRAD_TOL.
  16. vit-grad  (run after phase 10, on its seeded ViT-L tower) the tower's
-              gradient on the card: 16a, B2-lse (flash_fwd_dense_lse), B3-d64
-              (flash_dq_dense) and B4-d64 (flash_dkv_dense) against their
-              plain versions at VIT_CLIPS clips of (3136, 16, 64), q, k, v
-              strided views of one packed qkv, timed like phases 2 and 6
-              (library yardstick: SDPA's forward and its backward), and
-              held (untimed) at the image tiles' (5, 784, 16, 64); 16b, the
+              gradient on the card: 16a, B2-lse (flash_fwd_dense_lse) and
+              the fused d 64 backward (flash_bwd_dense, which replaces B3-d64
+              and B4-d64, with its preprocess and convert passes,
+              flash_bwd_dense_prep and flash_bwd_dense_convert) against
+              their plain versions at VIT_CLIPS clips of (3136, 16, 64), q,
+              k, v strided views of one packed qkv, the backward run twice
+              (dq's spread between runs under DQ_RUN_SPREAD x max|plain|, dk
+              and dv equal bit for bit), timed like phases 2 and 6 (library
+              yardstick: SDPA's forward and its backward), and held
+              (untimed) at the image tiles' (5, 784, 16, 64); 16b, the
               gradient of a seeded linear loss on GRAD_VIT_LAYERS blocks at
               full width and GRAD_VIT_CLIPS clips through the kernels against
               the same through the plain attention in fp32, on the pixels and
@@ -191,7 +195,8 @@ Phases, one line each (all numbers beside the card's name and power limit):
               the whole tower (23 blocks) forward and backward at VIT_CLIPS
               clips, timed (one untimed, VIT_GRAD_TIMED timed), its peak
               memory, every gradient finite and exactly 23 launches of each
-              of the three kernels a run and none of any other.
+              of the four kernels a run (B2-lse, the fused backward and its
+              two passes) and none of any other.
 Then the whole script's time, one JSON line of kernel records, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line. Without a CUDA GPU, or without the package next to this script,
@@ -220,6 +225,11 @@ ATTN_ATOL, ATTN_RTOL = 1e-2, 2e-2   # |kernel - plain| <= atol + rtol |plain|:
                      # points of the online softmax)
 LSE_TOL = 1e-3       # |kernel - plain| lse on query-mask-1 rows: fp32 sums of
                      # exact bf16 products in another order, ~1e-6 relative at |lse| ~ 7
+DQ_RUN_SPREAD = 1e-2 # max |dq run 1 - dq run 2| over max|plain| of the fused d 64 backward:
+                     # its dQ tiles reach the fp32 accumulator in L2 in no fixed order, so
+                     # two runs may differ in dq's last bits (dk and dv must not differ)
+DELTA_TOL = 1e-5     # |kernel - plain| delta = rowsum(dO * O) over max|plain|: fp32 sums of
+                     # 64 products in another order
 GRAD_TOL = 3e-2      # |kernel - plain| dq, dk, dv over max|plain|: the kernels
                      # round P and dS to bf16 before their tensor-core products
                      # and write bf16; the plain version keeps fp32 to the end
@@ -292,7 +302,8 @@ GRADCHECK_TOL = 5e-2        # |kernel - plain| per LoRA leaf over max|plain|: bf
                             # bf16 in the kernels, in another order in the plain
 
 VIT_CLIPS = 8        # B2's check and record shape: the end-to-end batch, 2 videos x 4 clips;
-                     # also B2-lse, B3-d64 and B4-d64's and the whole tower's gradient (phase 16)
+                     # also B2-lse's, the fused d 64 backward's and the whole tower's
+                     # gradient (phase 16)
 GRAD_VIT_LAYERS = 4  # phase 16b: blocks of the tower whose gradient is held to the plain
 GRAD_VIT_CLIPS = 2   # attention's, at full width, and its clips
 VIT_GRAD_TIMED = 3   # phase 16c: timed forward + backward runs of the whole tower
@@ -446,6 +457,30 @@ def raw_fwd(q, k, v, mask=None, causal=True, with_lse=False):
     return call
 
 
+def checked(call, name, error_string):
+    """call, failing the run when its C entry point returns a CUDA error."""
+    def run():
+        rc = call()
+        if rc:
+            fail(f"blim_{name}: CUDA error {rc} ({error_string(rc).decode()})")
+    return run
+
+
+def raw_bwd_dense(q, k, v, dout, out, lse):
+    """flash_bwd_dense.cu's three C entry points on operands prepared once,
+    as the wrapper prepares them (q, k, v, dO and O read in place): (dq, dk,
+    dv, delta, acc, prep, fused, convert), each call checked, none
+    counted."""
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    *outs, call_prep, call_bwd, call_convert = fa._dense_backward_calls(
+        q, k, v, dout, out, lse.contiguous(), q.shape[-1] ** -0.5)
+    error_string = fa._library("flash_bwd_dense").blim_flash_bwd_dense_error_string
+    return (*outs, checked(call_prep, "flash_bwd_dense_prep", error_string),
+            checked(call_bwd, "flash_bwd_dense", error_string),
+            checked(call_convert, "flash_bwd_dense_convert", error_string))
+
+
 def raw_bwd(q, k, v, dout, mask, out, lse, causal=True):
     """Zero-argument calls of flash_bwd.cu's two C entry points (dq, then dk
     and dv) on operands prepared once, as the wrapper prepares them: dO
@@ -461,15 +496,7 @@ def raw_bwd(q, k, v, dout, mask, out, lse, causal=True):
     *_, call_dq, call_dkv = fa._backward_calls(q, k, v, g, lse.contiguous(), delta, km,
                                                q.shape[-1] ** -0.5, causal)
     error_string = fa._library("flash_bwd").blim_flash_bwd_error_string
-
-    def checked(call, name):
-        def run():
-            rc = call()
-            if rc:
-                fail(f"blim_{name}: CUDA error {rc} ({error_string(rc).decode()})")
-        return run
-
-    return checked(call_dq, "flash_dq"), checked(call_dkv, "flash_dkv")
+    return checked(call_dq, "flash_dq", error_string), checked(call_dkv, "flash_dkv", error_string)
 
 
 def sdpa_backward_ms(sdpa, inputs, dout, **timing):
@@ -517,9 +544,10 @@ def backward_traffic(b, s, hq, hkv, d, key_mask, query_mask, causal=True):
     each output written once; B3 (flash_dq) reads q, dO, k, v, lse, delta,
     the mask (if any) and writes dq, against 3 products of 2 d flops per
     visible (query, key) pair; B4 (flash_dkv) reads the same and writes dk,
-    dv, against 4 products. Masked, the pairs are the causal ones with both
-    masks 1; without masks, the causal triangle or (causal=False, the ViT)
-    all S^2 of them."""
+    dv, against 4 products; the fused backward (flash_bwd_dense) reads the
+    same and writes dq, dk and dv, against 5 products (S, dP, dV, dK, dQ).
+    Masked, the pairs are the causal ones with both masks 1; without masks,
+    the causal triangle or (causal=False, the ViT) all S^2 of them."""
     q_like = 2 * b * s * hq * d       # bf16 q, dO or dq
     kv_like = 2 * b * s * hkv * d     # bf16 k, v, dk or dv
     stats = 2 * 4 * b * hq * s        # fp32 lse and delta
@@ -530,7 +558,19 @@ def backward_traffic(b, s, hq, hkv, d, key_mask, query_mask, causal=True):
         mask = 4 * b * s
         pairs = pairs_visible(key_mask, query_mask)
     return {"flash_dq": (3 * q_like + 2 * kv_like + stats + mask, 6.0 * d * hq * pairs),
-            "flash_dkv": (2 * q_like + 4 * kv_like + stats + mask, 8.0 * d * hq * pairs)}
+            "flash_dkv": (2 * q_like + 4 * kv_like + stats + mask, 8.0 * d * hq * pairs),
+            "flash_bwd_dense": (3 * q_like + 4 * kv_like + stats + mask, 10.0 * d * hq * pairs)}
+
+
+def dense_pass_traffic(b, s, h, d):
+    """Bytes and flops of the fused backward's two passes: the preprocess
+    reads O and dO and writes delta (fp32) and the zeroed fp32 dQ
+    accumulator (64-row tiles), 2 d flops a row; the convert reads the
+    accumulator and writes dq, one multiply an element."""
+    one = 2 * b * s * h * d
+    acc = 4 * b * h * -(-s // 64) * 64 * d
+    return {"flash_bwd_dense_prep": (2 * one + 4 * b * h * s + acc, 2.0 * d * b * s * h),
+            "flash_bwd_dense_convert": (acc + one, 1.0 * d * b * s * h)}
 
 
 def phase_build():
@@ -546,13 +586,12 @@ def phase_build():
             if any(w in ln for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"[build]   {ln.strip()}", flush=True)
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
+    dense = fa._library("flash_bwd_dense")
     print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
           f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense, "
-          f"flash_fwd_dense_lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B at d 128, "
-          f"{bwd.blim_flash_bwd_smem_bytes(0, 64)} B at d 64, "
-          f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1, 128)} B at d 128, "
-          f"{bwd.blim_flash_bwd_smem_bytes(1, 64)} B at d 64 (cluster of 1 CTA at the ViT's "
-          f"group of 1)", flush=True)
+          f"flash_fwd_dense_lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B, "
+          f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1, 128)} B (d 128), flash_bwd_dense "
+          f"{dense.blim_flash_bwd_dense_smem_bytes()} B (d 64)", flush=True)
     occupancy = bwd.blim_flash_dkv_cluster_occupancy(7)
     if occupancy < 0:
         fail(f"flash_dkv cluster occupancy query: CUDA error {-occupancy}")
@@ -764,7 +803,7 @@ def phase_train_kernels(card):
                            plain_and_library_cover="dq+dk+dv", wrapper_covers="dq+dk+dv")
 
     # B3 + B4 in the non-causal masked mode at group 7 (no path runs it; held here
-    # because its grid order is the non-causal one B3-d64/B4-d64 share)
+    # because its grid order, a head's tiles side by side, is no causal path's)
     name, m = train_attention_cases()[0]
     b, s = m.shape
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -2949,9 +2988,10 @@ def phase_extract(card):
 
 
 def vit_grad_kernels(card):
-    """Phase 16a: B2-lse, B3-d64 and B4-d64 against their plain versions at
-    VIT_CLIPS clips of the ViT's (S, H, d), q, k and v strided views of one
-    packed qkv as the tower hands them, with times; returns their records."""
+    """Phase 16a: B2-lse, and the fused d 64 backward with its two passes,
+    against their plain versions at VIT_CLIPS clips of the ViT's (S, H, d),
+    q, k and v strided views of one packed qkv as the tower hands them, with
+    times; returns their records."""
     import torch
     import torch.nn.functional as F
 
@@ -3004,13 +3044,15 @@ def vit_grad_kernels(card):
                                           bound_ms=bound_ms, bound_by=bound_by,
                                           library_ms=lib_ms, max_abs_err=max(err_o, err_lse))
 
-    # B3-d64 + B4-d64 on the plain forward's O and lse, so both sides read the same inputs
+    # the fused d 64 backward (preprocess, fused kernel, convert) on the plain
+    # forward's O and lse, so both sides read the same inputs; run twice
+    passes = ("flash_bwd_dense_prep", "flash_bwd_dense", "flash_bwd_dense_convert")
     before = fa.counts()
     got = fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False)
+    again = fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False)
     torch.cuda.synchronize()
-    if fa.counts() != dict(before, flash_dq_dense=before["flash_dq_dense"] + 1,
-                           flash_dkv_dense=before["flash_dkv_dense"] + 1):
-        fail(f"flash_dq_dense/flash_dkv_dense: the wrapper did not launch each kernel once "
+    if fa.counts() != dict(before, **{n: before[n] + 2 for n in passes}):
+        fail(f"flash_bwd_dense: the wrapper did not launch each of {passes} once a call "
              f"({before} -> {fa.counts()})")
     want = fa.reference_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False, scale)
     errs = {}
@@ -3018,37 +3060,73 @@ def vit_grad_kernels(card):
         if not torch.isfinite(g).all():
             fail(f"{gname} (d 64): non-finite")
         errs[gname] = ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
-    del got, want
+    spread = (got[0].float() - again[0].float()).abs().max().item()
+    dkv_repeat = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    del got, again, want
+
+    # the two passes against their plain versions, on the raw calls' own operands
+    dq_raw, _, _, delta, acc, call_prep, call_bwd, call_convert = raw_bwd_dense(
+        q, k, v, dout, ref, ref_lse)
+    call_prep()
+    torch.cuda.synchronize()
+    want_delta, _ = fa.reference_bwd_dense_prep(ref, dout)
+    err_delta = (delta - want_delta).abs().max().item()
+    max_delta = want_delta.abs().max().item()
+    acc_zeroed = bool((acc == 0).all())
+    call_bwd()
+    call_convert()
+    torch.cuda.synchronize()
+    want_dq = fa.reference_bwd_dense_convert(acc, s, scale)
+    err_convert = (dq_raw.float() - want_dq.float()).abs().max().item()
+    del want_delta, want_dq
+
+    ms_prep = graph_time_ms(call_prep, iters=10, replays=2)
+    ms_bwd = graph_time_ms(call_bwd, iters=10, replays=2)
+    ms_convert = graph_time_ms(call_convert, iters=10, replays=2)
     ms_wrapper = gpu_time_ms(
         lambda: fa.flash_attention_backward(q, k, v, None, None, ref, ref_lse, dout, False),
         iters=5)
     plain_bwd = gpu_time_ms(lambda: fa.reference_attention_backward(
         q, k, v, None, None, ref, ref_lse, dout, False, scale), iters=2, warmup=1)
-    call_dq, call_dkv = raw_bwd(q, k, v, dout, None, ref, ref_lse, causal=False)
-    ms_dq = graph_time_ms(call_dq, iters=10, replays=2)
-    ms_dkv = graph_time_ms(call_dkv, iters=10, replays=2)
+    plain_prep = gpu_time_ms(lambda: fa.reference_bwd_dense_prep(ref, dout), iters=5)
+    plain_convert = gpu_time_ms(lambda: fa.reference_bwd_dense_convert(acc, s, scale), iters=5)
     lib_bwd = sdpa_backward_ms(sdpa, (qt, kt, vt), dout.transpose(1, 2), iters=5, replays=2)
-    traffic = backward_traffic(clips, s, h, h, d, None, None, causal=False)
-    b_dq, by_dq = roofline_ms(*traffic["flash_dq"])
-    b_dkv, by_dkv = roofline_ms(*traffic["flash_dkv"])
-    print(f"[vit-grad] flash_dq_dense/flash_dkv_dense {shape}: " + ", ".join(
+    b_f, by_f = roofline_ms(*backward_traffic(clips, s, h, h, d, None, None,
+                                              causal=False)["flash_bwd_dense"])
+    pass_bounds = {n: roofline_ms(*t) for n, t in dense_pass_traffic(clips, s, h, d).items()}
+    (b_prep, by_prep), (b_conv, by_conv) = pass_bounds.values()
+    print(f"[vit-grad] flash_bwd_dense {shape}: " + ", ".join(
         f"{gname} max|d| {e:.3e} (max|plain| {mx:.3e})" for gname, (e, mx) in errs.items())
-        + f" (tol {GRAD_TOL} max|plain|); dq kernel {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}: "
-        f"{100 * b_dq / ms_dq:.1f}%), dkv kernel {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}: "
-        f"{100 * b_dkv / ms_dkv:.1f}%) (raw entry points, CUDA graph), wrapper with delta "
-        f"{ms_wrapper:.4f} ms, plain backward {plain_bwd:.4f} ms, sdpa backward (dq+dk+dv) "
-        f"{lib_bwd:.4f} ms (CUDA graph) [{card}]", flush=True)
+        + f" (tol {GRAD_TOL} max|plain|); two runs: dq spread {spread:.3e} (tol {DQ_RUN_SPREAD} "
+        f"max|plain|), dk and dv equal bit for bit: {dkv_repeat}; fused kernel {ms_bwd:.4f} ms "
+        f"(bound {b_f:.4f}, {by_f}: {100 * b_f / ms_bwd:.1f}%; raw entry point, CUDA graph), "
+        f"prep {ms_prep:.4f} ms (bound {b_prep:.4f}, {by_prep}; plain {plain_prep:.4f}; delta "
+        f"max|d| {err_delta:.3e} of max|plain| {max_delta:.3e}, accumulator zeroed {acc_zeroed}), "
+        f"convert {ms_convert:.4f} ms (bound {b_conv:.4f}, {by_conv}; plain {plain_convert:.4f}; "
+        f"max|d| {err_convert:.3e}), wrapper (prep + fused + convert) {ms_wrapper:.4f} ms, plain "
+        f"backward {plain_bwd:.4f} ms, sdpa backward (dq+dk+dv) {lib_bwd:.4f} ms (CUDA graph) "
+        f"[{card}]", flush=True)
     for gname, (e, mx) in errs.items():
         if e > GRAD_TOL * mx:
             fail(f"{gname} (d 64): |kernel - plain| {e:.3e} > {GRAD_TOL} x {mx:.3e}")
-    for key, ms_k, b_k, by_k, gnames in (("flash_dq_dense", ms_dq, b_dq, by_dq, ("dq",)),
-                                         ("flash_dkv_dense", ms_dkv, b_dkv, by_dkv,
-                                          ("dk", "dv"))):
-        # the plain backward and the library backward compute dq, dk and dv together
-        records[key] = dict(ms=ms_k, wrapper_ms=ms_wrapper, plain_ms=plain_bwd, bound_ms=b_k,
-                            bound_by=by_k, library_ms=lib_bwd,
-                            max_abs_err=max(errs[g][0] for g in gnames),
-                            plain_and_library_cover="dq+dk+dv", wrapper_covers="dq+dk+dv")
+    if spread > DQ_RUN_SPREAD * errs["dq"][1] or not dkv_repeat:
+        fail(f"flash_bwd_dense: two runs differ (dq {spread:.3e}; dk, dv equal: {dkv_repeat})")
+    if err_delta > DELTA_TOL * max_delta or not acc_zeroed:
+        fail(f"flash_bwd_dense_prep: delta off by {err_delta:.3e} or the accumulator not zeroed")
+    if err_convert > 0:
+        fail(f"flash_bwd_dense_convert: differs from its plain version by {err_convert:.3e}")
+    # the plain backward and the library backward compute dq, dk and dv together
+    records["flash_bwd_dense"] = dict(
+        ms=ms_bwd, wrapper_ms=ms_wrapper, plain_ms=plain_bwd, bound_ms=b_f, bound_by=by_f,
+        library_ms=lib_bwd, max_abs_err=max(e for e, _ in errs.values()), dq_run_spread=spread,
+        dk_dv_repeat_bitwise=dkv_repeat, plain_and_library_cover="dq+dk+dv",
+        wrapper_covers="prep+fused+convert",
+        passes={"flash_bwd_dense_prep": dict(ms=ms_prep, plain_ms=plain_prep, bound_ms=b_prep,
+                                             bound_by=by_prep, library_ms=None,
+                                             max_abs_err=err_delta),
+                "flash_bwd_dense_convert": dict(ms=ms_convert, plain_ms=plain_convert,
+                                                bound_ms=b_conv, bound_by=by_conv,
+                                                library_ms=None, max_abs_err=err_convert)})
     return records
 
 
@@ -3076,7 +3154,7 @@ def vit_grad_ragged_check(card):
     rel = {n_: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for n_, g, w in zip(("dq", "dk", "dv"), got, want)}
     finite = all(torch.isfinite(t).all() for t in (out, lse, *got))
-    print(f"[vit-grad] B2-lse, B3-d64, B4-d64 at the image tiles' ({n}, {s}, {h}, {d}): out "
+    print(f"[vit-grad] B2-lse, flash_bwd_dense at the image tiles' ({n}, {s}, {h}, {d}): out "
           f"excess over {ATTN_RTOL}|plain| {excess:.3e} (tol {ATTN_ATOL}), lse {err_lse:.3e} "
           f"(tol {LSE_TOL}), max|d|/max|plain| " + ", ".join(f"{k_} {x:.3e}" for k_, x in rel.items())
           + f" (tol {GRAD_TOL}), finite {finite} [{card}]", flush=True)
@@ -3163,8 +3241,8 @@ def vit_grad_tower_check(vit, cfg, card):
                                      plain).values())
         finally:
             fa.flash_attention_backward = backward
-    expected = dict({k: 0 for k in k_counts}, flash_fwd_dense_lse=layers,
-                    flash_dq_dense=layers, flash_dkv_dense=layers)
+    expected = dict({k: 0 for k in k_counts}, flash_fwd_dense_lse=layers, flash_bwd_dense=layers,
+                    flash_bwd_dense_prep=layers, flash_bwd_dense_convert=layers)
     print(f"[vit-grad] tower gradient, {layers} blocks at full width, {GRAD_VIT_CLIPS} clips, "
           f"bf16: kernels vs plain attention (fp32) max|d|/max|plain| "
           + ", ".join(f"{n} {g:.3e}" for n, g in clean.items())
@@ -3186,7 +3264,8 @@ def vit_grad_tower_timed(vit, cfg, card):
     """Phase 16c: the whole tower (every block the truncation keeps) forward
     and backward at VIT_CLIPS clips, with respect to the pixels and every
     leaf: one untimed run, then VIT_GRAD_TIMED timed ones, each launching
-    B2-lse, B3-d64 and B4-d64 once a block and no other kernel."""
+    B2-lse, the fused backward and its two passes once a block and no other
+    kernel."""
     import torch
 
     from blim_tpu_torch.kernels import flash_attention as fa
@@ -3223,8 +3302,8 @@ def vit_grad_tower_timed(vit, cfg, card):
         times.append(time.perf_counter() - t)
         runs.append(fa.counts())
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    expected = dict({k: 0 for k in runs[0]}, flash_fwd_dense_lse=depth, flash_dq_dense=depth,
-                    flash_dkv_dense=depth)
+    expected = dict({k: 0 for k in runs[0]}, flash_fwd_dense_lse=depth, flash_bwd_dense=depth,
+                    flash_bwd_dense_prep=depth, flash_bwd_dense_convert=depth)
     finite = all(torch.isfinite(g).all() for g in grads)
     ms = 1e3 * float(np.mean(times))
     print(f"[vit-grad] whole tower ({depth} blocks) forward + backward at {VIT_CLIPS} clips "
@@ -4223,13 +4302,15 @@ def main():
     kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
                     "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
                     "chat": chat_b2})
+    tower_launches = vit_grad["tower"]["launches"]
     for name, source, line in (("flash_fwd_dense_lse", "flash_fwd.cu", "121"),
-                               ("flash_dq_dense", "flash_bwd.cu", "195"),
-                               ("flash_dkv_dense", "flash_bwd.cu", "252")):
+                               ("flash_bwd_dense", "flash_bwd_dense.cu", "195,252")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
-                        "replaces": ref + line, "launches": vit_grad["tower"]["launches"][name],
+                        "replaces": ref + line, "launches": tower_launches[name],
                         **vit_grad["records"][name]})
-    kernels[-3]["tower_fwd_bwd_ms"] = vit_grad["tower"]["ms"]
+    for name, rec in kernels[-1]["passes"].items():
+        rec["launches"] = tower_launches[name]
+    kernels[-2]["tower_fwd_bwd_ms"] = vit_grad["tower"]["ms"]
     print(f"[time] the whole script took {time.time() - t_script:.1f}s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

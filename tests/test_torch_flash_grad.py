@@ -133,7 +133,8 @@ def test_function_on_cpu_matches_jax_vjp(jax_results, name):
     _assert_grads([tq.grad, tk.grad, tv.grad], ref["grads"])
     assert tfa.counts() == {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_fwd_dense": 0,
                             "flash_fwd_dense_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-                            "flash_dq_dense": 0, "flash_dkv_dense": 0}
+                            "flash_bwd_dense": 0, "flash_bwd_dense_prep": 0,
+                            "flash_bwd_dense_convert": 0}
 
 
 @pytest.mark.parametrize("causal", [True, False])

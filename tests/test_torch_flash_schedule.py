@@ -26,11 +26,21 @@ exponentials as exp2 of one FMA of the unscaled score with scale * log2(e)
 and lse * log2(e) (fp64); invisible pairs given p = 0; P and dS rounded to
 bf16 before their products; each cluster rank's partial dK, dV over its q
 heads of the GQA group, summed in rank order. It is held to
-`reference_attention_backward` with chip_smoke.py's GRAD_TOL, at the train
-step's d = 128 masks and at the ViT's d = 64 dense non-causal mode (every
-kv tile against every q tile, a GQA group of 1 and so a cluster of 1 CTA
-whose rank-order sum is its own partial; S = 3136 leaves a ragged last
-128-row tile, S = 784, the image tiles', ragged 64-row tiles too).
+`reference_attention_backward` with chip_smoke.py's GRAD_TOL at the train
+step's d = 128 masks.
+
+`scheduled_backward_dense` models flash_bwd_dense.cu, the fused backward of
+the ViT's d = 64 dense non-causal mode, through the port's own plain
+versions of its two passes: the preprocess's delta and zeroed accumulator;
+128-row kv tiles (a CTA each) against 64-row q tiles, zero-filled beyond S,
+one exp2-FMA a pair, p = 0 where the q or kv row lies beyond S, P and dS
+rounded to bf16 before their products; dV, dK summed over the q tiles in
+order; each kv tile's dQ tile added in fp32 into the accumulator, laid out
+as the kernel lays it out, in an order drawn from a seeded permutation (the
+bulk reductions land in L2 in no fixed order); then the convert. It is
+held to `reference_attention_backward` at GRAD_TOL at one clip of S = 3136
+(a ragged last 128-row kv tile) and at the image tiles' S = 784 (ragged
+64-row q tiles too), and two add orders to each other.
 """
 
 import math
@@ -47,6 +57,7 @@ from blim_tpu_torch.kernels.attention import reference_attention
 BQ = BK = 128                 # q rows per CTA, kv rows per tile
 DQ_ROWS, DQ_KV = 128, 64      # flash_dq: q rows a CTA, kv rows a tile
 DKV_ROWS, DKV_Q = 128, 64     # flash_dkv: kv rows a CTA, q rows a tile
+DENSE_KV, DENSE_Q = 128, 64   # flash_bwd_dense: kv rows a CTA, q rows a tile
 LOG2E = 1.4426950408889634
 
 
@@ -197,6 +208,51 @@ def scheduled_backward(q, k, v, key_mask, query_mask, out, lse, dout, causal=Tru
     return back(dq, scale), back(dk, scale), back(dv, 1.0)
 
 
+def scheduled_backward_dense(q, k, v, out, lse, dout, scale=None, order_seed=0):
+    """flash_bwd_dense.cu's preprocess, fused kernel and convert, modelled
+    tile by tile: (dq, dk, dv) in bf16. One q head a K/V head, no masks,
+    non-causal. `order_seed` draws, for every q tile, the order in which the
+    kv tiles' dQ tiles reach the accumulator."""
+    b, s, h, d = q.shape
+    scale = _f32(d ** -0.5 if scale is None else scale)
+    c = _f32(scale * _f32(LOG2E))
+    delta, acc = tfa.reference_bwd_dense_prep(out, dout)                 # (B, H, S), zeros
+    lse2 = (lse.float() * _f32(LOG2E)).double()                         # rounded to fp32 first
+    n_kv, n_q = -(-s // DENSE_KV), -(-s // DENSE_Q)
+    pad = lambda t, n: torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, n - s)).permute(0, 2, 1, 3)  # noqa: E731
+    qf, gf = pad(q, n_q * DENSE_Q), pad(dout, n_q * DENSE_Q)            # TMA's zeros beyond S
+    kf, vf = pad(k, n_kv * DENSE_KV), pad(v, n_kv * DENSE_KV)
+    rows = torch.arange(n_q * DENSE_Q)
+    delta = torch.nn.functional.pad(delta, (0, n_q * DENSE_Q - s))
+    lse2 = torch.nn.functional.pad(lse2, (0, n_q * DENSE_Q - s))
+    dk = torch.zeros((b, h, n_kv * DENSE_KV, d))
+    dv = torch.zeros((b, h, n_kv * DENSE_KV, d))
+    dq_tiles = torch.zeros((n_kv, b, h, n_q * DENSE_Q, d))               # each CTA's dQ tiles
+    for kt in range(n_kv):                                              # one CTA each
+        cols = torch.arange(kt * DENSE_KV, (kt + 1) * DENSE_KV)
+        sc = qf @ kf[:, :, cols].transpose(-1, -2)                      # unscaled fp32 (S^T's transpose)
+        dp = gf @ vf[:, :, cols].transpose(-1, -2)
+        p = torch.exp2(sc.double() * c - lse2[..., None]).float()
+        p = p.masked_fill(~((rows < s)[:, None] & (cols < s)[None, :]), 0.0)
+        ds = p * (dp - delta[..., None])
+        pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+        dv[:, :, cols] = pb.transpose(-1, -2) @ gf
+        dk[:, :, cols] = dsb.transpose(-1, -2) @ qf
+        dq_tiles[kt] = dsb @ kf[:, :, cols]
+    # every q tile's dQ tiles reach the accumulator in their own order
+    order = torch.from_numpy(np.random.default_rng(order_seed).permuted(
+        np.tile(np.arange(n_kv), (n_q, 1)), axis=1))
+    tiles = dq_tiles.reshape(n_kv, b, h, n_q, DENSE_Q, d)
+    summed = torch.zeros((n_q, b, h, DENSE_Q, d))
+    for step in range(n_kv):
+        summed += tiles[order[:, step], :, :, torch.arange(n_q)]
+    acc[..., tfa.dq_accumulator_order().reshape(-1)] += summed.permute(1, 2, 0, 3, 4).reshape(
+        b, h, n_q, DENSE_Q * d)
+    dq = tfa.reference_bwd_dense_convert(acc, s, scale)
+    back = lambda t, mul: (t[:, :, :s] * mul).permute(0, 2, 1, 3).to(torch.bfloat16)  # noqa: E731
+    return dq, back(dk, scale), back(dv, 1.0)
+
+
 def _vtg_mask(s):
     m = torch.ones((4, s), dtype=torch.int32)
     for i, pad in enumerate((23, 61, 5, 88)):
@@ -274,8 +330,8 @@ def test_fully_masked_rows_stay_finite_only_with_a_power_of_two_masked_logit():
 # name -> (B, S, Hq, Hkv, d, causal, mask maker): the train step's backward
 # shapes with one kv head's worth of the 7B's GQA group of 7 (Hq 14, Hkv 2),
 # and the forward's other masks; one case at a group of 4 (a cluster of 4);
-# the ViT's dense non-causal d = 64 at one clip of 2 heads (group 1, a
-# cluster of 1), and at the image tiles' S = 784
+# the ViT's dense non-causal d = 64 at one clip of 2 heads, and at the image
+# tiles' S = 784: these two through the fused model, scheduled_backward_dense
 BACKWARD_CASES = {
     "VTG S=448 right pads": (4, 448, 14, 2, 128, True, lambda rng: _vtg_mask(448)),
     "TVG S=256 left pads": (4, 256, 14, 2, 128, True, lambda rng: _tvg_mask(256)),
@@ -298,18 +354,64 @@ def _backward_inputs(case):
     return q, k, v, mask, out, lse, dout
 
 
-@pytest.mark.parametrize("case", list(BACKWARD_CASES))
-def test_scheduled_backward_matches_plain_version(case):
-    q, k, v, mask, out, lse, dout = _backward_inputs(case)
-    causal = BACKWARD_CASES[case][5]
-    scale = q.shape[-1] ** -0.5
-    got = scheduled_backward(q, k, v, mask, mask, out, lse, dout, causal)
-    want = tfa.reference_attention_backward(q, k, v, mask, mask, out, lse, dout, causal, scale)
+def _assert_within_grad_tol(got, want, case):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, (case, name)
         assert torch.isfinite(g.float()).all(), (case, name)
         err = (g.float() - w.float()).abs().max().item()
         assert err <= GRAD_TOL * w.float().abs().max().item(), (case, name, err)
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_scheduled_backward_matches_plain_version(case):
+    q, k, v, mask, out, lse, dout = _backward_inputs(case)
+    causal = BACKWARD_CASES[case][5]
+    scale = q.shape[-1] ** -0.5
+    if q.shape[-1] == tfa.DENSE_HEAD_DIM:          # the fused d = 64 kernel
+        got = scheduled_backward_dense(q, k, v, out, lse, dout)
+    else:
+        got = scheduled_backward(q, k, v, mask, mask, out, lse, dout, causal)
+    want = tfa.reference_attention_backward(q, k, v, mask, mask, out, lse, dout, causal, scale)
+    _assert_within_grad_tol(got, want, case)
+
+
+def test_fused_dense_backward_add_orders_agree():
+    """The fused kernel's dQ tiles reach the fp32 accumulator in no fixed
+    order. Two orders both hold to the plain version, and their dq differ by
+    under 1% of max|plain| (chip_smoke.py's DQ_RUN_SPREAD); dk and dv do not
+    depend on the order."""
+    case = "image tiles S=784 dense d=64 group 1"
+    q, k, v, _, out, lse, dout = _backward_inputs(case)
+    want = tfa.reference_attention_backward(q, k, v, None, None, out, lse, dout, False)
+    first = scheduled_backward_dense(q, k, v, out, lse, dout, order_seed=1)
+    second = scheduled_backward_dense(q, k, v, out, lse, dout, order_seed=2)
+    for got in (first, second):
+        _assert_within_grad_tol(got, want, case)
+    spread = (first[0].float() - second[0].float()).abs().max().item()
+    assert spread < chip_smoke.DQ_RUN_SPREAD * want[0].float().abs().max().item()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+def test_dq_accumulator_order_is_the_consumer_thread_layout():
+    """Thread t of the dQ product's warpgroup holds accumulator registers
+    4j .. 4j + 3 = rows 16(t // 32) + (t % 32) // 4 (+ 8 for the last two),
+    columns 8j + 2(t % 4) (+ 1 for the odd ones), and stages them as float4
+    (j, t) of the tile; the convert reads them back through the same map."""
+    order = tfa.dq_accumulator_order()
+    seen = torch.zeros(64 * 64, dtype=torch.bool)
+    for t in range(128):
+        for j in range(8):
+            for e in range(4):
+                r = 16 * (t // 32) + (t % 32) // 4 + 8 * (e // 2)
+                col = 8 * j + 2 * (t % 4) + e % 2
+                assert order[r, col].item() == (j * 128 + t) * 4 + e
+                seen[(j * 128 + t) * 4 + e] = True
+    assert seen.all()
+    acc = torch.zeros((1, 1, 2, 4096))
+    acc[0, 0, 1, order[5, 9]] = 3.0                      # q tile 1, row 5, column 9
+    dq = tfa.reference_bwd_dense_convert(acc, 100, 0.5)
+    assert dq.shape == (1, 100, 1, 64) and dq[0, 69, 0, 9].item() == 1.5
+    assert dq.float().abs().sum().item() == 1.5
 
 
 def test_fully_masked_query_rows_stay_finite_only_with_p_zero_for_invisible_pairs():
@@ -345,9 +447,11 @@ def test_backward_bound_counts_every_byte_at_the_vtg_shape():
 
 def test_dense_bounds_at_the_vit_shape():
     """Every pair visible at 8 clips of (3136, 16, 64): B2-lse 4 d flops a
-    pair, 3.22e11 (0.3258 ms), B3-d64 6 d, 4.83e11 (0.4888 ms), B4-d64 8 d,
-    6.45e11 (0.6517 ms), all bound by operations; B3-d64's ~0.26 GB of
-    bytes (q, dO, k, v, lse, delta, dq) would take 0.078 ms."""
+    pair, 3.22e11 (0.3258 ms); flash_dq's count 6 d, 4.83e11 (0.4888 ms),
+    flash_dkv's 8 d, 6.45e11 (0.6517 ms) (the bounds of the two kernels
+    that the fused d = 64 backward replaced), all bound by operations;
+    flash_dq's ~0.26 GB of bytes (q, dO, k, v, lse, delta, dq) would take
+    0.078 ms."""
     clips, s, h, d = 8, 3136, 16, 64
     pairs = clips * h * s * s
     ms, by = chip_smoke.vit_attention_bound_ms(clips, s, h, d, with_lse=True)
@@ -369,8 +473,30 @@ def test_dense_bounds_at_the_vit_shape():
     assert causal["flash_dq"][1] == 6.0 * d * h * (s * (s + 1) // 2)
 
 
+def test_fused_dense_backward_bound_at_the_vit_shape():
+    """The fused d = 64 backward at 8 clips of (3136, 16, 64): 10 d flops a
+    pair (S, dP, dV, dK, dQ), 8.056e11 or 0.8146 ms at 989 TFLOP/s, against
+    q, k, v, dO, dq, dk, dv once (7 x 51,380,224 bytes) and the fp32 lse and
+    delta (3,211,264): 362,872,832 bytes, 0.108 ms; its two passes are
+    bound by bytes."""
+    clips, s, h, d = 8, 3136, 16, 64
+    nbytes, flops = chip_smoke.backward_traffic(clips, s, h, h, d, None, None,
+                                                causal=False)["flash_bwd_dense"]
+    assert nbytes == 7 * 51_380_224 + 3_211_264 == 362_872_832
+    assert flops == 10.0 * d * clips * h * s * s == pytest.approx(8.056e11, rel=1e-4)
+    ms, by = chip_smoke.roofline_ms(nbytes, flops)
+    assert by == "operations" and ms == pytest.approx(0.8146, abs=1e-4)
+    assert nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.1083, abs=1e-4)
+    passes = chip_smoke.dense_pass_traffic(clips, s, h, d)
+    acc = 4 * clips * h * 49 * 64 * d                    # S = 3136 is 49 whole q tiles
+    assert passes["flash_bwd_dense_prep"][0] == 2 * 51_380_224 + 1_605_632 + acc
+    assert passes["flash_bwd_dense_convert"][0] == acc + 51_380_224
+    for nbytes, flops in passes.values():
+        assert chip_smoke.roofline_ms(nbytes, flops)[1] == "bytes"
+
+
 def test_editing_the_shared_header_rebuilds_both_libraries(monkeypatch, tmp_path):
-    """Both sources include csrc/hopper.cuh: an edit to it must change the
+    """Every source includes csrc/hopper.cuh: an edit to it must change the
     library path of each, or a stale build would be loaded."""
     import shutil
 

@@ -172,7 +172,8 @@ def test_gradient_matches_jax(loss_and_grads, leaf):
 def test_cpu_train_forward_launches_no_kernel(loss_and_grads):
     assert loss_and_grads["counts"] == {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_fwd_dense": 0,
                                         "flash_fwd_dense_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-                                        "flash_dq_dense": 0, "flash_dkv_dense": 0}
+                                        "flash_bwd_dense": 0, "flash_bwd_dense_prep": 0,
+                                        "flash_bwd_dense_convert": 0}
 
 
 # ---------------------------------------------------------------------------

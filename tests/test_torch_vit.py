@@ -291,7 +291,8 @@ def test_counts_report_b2():
     tfa.reset_counts()
     assert tfa.counts() == {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_fwd_dense": 0,
                             "flash_fwd_dense_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-                            "flash_dq_dense": 0, "flash_dkv_dense": 0}
+                            "flash_bwd_dense": 0, "flash_bwd_dense_prep": 0,
+                            "flash_bwd_dense_convert": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""The UMT tower's gradient: the port's plain versions of B2-lse, B3-d64 and
-B4-d64, its autograd Function at head dim 64 and the gradient through its
+"""The UMT tower's gradient: the port's plain versions of B2-lse and of the
+d = 64 backward (the TPU's dq and dk/dv kernels, one fused kernel on the
+card), its autograd Function at head dim 64 and the gradient through its
 `umt_vit.encode_clips`, against the JAX package on the CPU in fp32.
 
-B2-lse, B3-d64 and B4-d64 themselves run only on the card (chip_smoke.py
-phase 16 holds them to these plain versions there). Here:
+B2-lse and the fused backward themselves run only on the card
+(chip_smoke.py phase 16 holds them to these plain versions there;
+tests/test_torch_flash_schedule.py models the fused kernel's tiles). Here:
 
   (a) `reference_attention_lse` at d = 64, dense, non-causal, one q head a
       K/V head, on strided views of a packed qkv (as the ViT hands them),
@@ -19,7 +21,8 @@ phase 16 holds them to these plain versions there). Here:
       `umt_vit.encode_clips` against `jax.grad` through JAX's, with respect
       to the pixels and every leaf of one numpy tree bridged into both
       packages: hidden 128, 2 heads of 64, 2 blocks, image 32, patch 16, 2
-      frames.
+      frames;
+  (e) which operands the fused backward reads in place (`_in_place`).
 
 Tolerances: fp32 sums in another order. Outputs atol 1e-5 / rtol 1e-4; lse
 atol 1e-5 (every row sees every key, |lse| ~ 5); a gradient 1e-4 x max|g|
@@ -208,3 +211,19 @@ def test_tower_gradient_matches_jax_grad():
     assert len(paths) == len(jax.tree_util.tree_leaves(want_tree))
     for path, g in zip(paths, grads[1:]):
         _assert_close_rel(g, np.asarray(_get(want_tree, path)), TOWER_GRAD_REL, "/".join(path))
+
+
+def test_dense_backward_reads_the_towers_views_in_place(packed):
+    """The fused d = 64 backward's TMA maps and 16-byte loads take the
+    tower's q, k, v (slices of the packed qkv) and a contiguous dO as they
+    are; a dO or O whose last dim is strided, or whose other strides are no
+    multiple of 8 elements, is copied to a contiguous tensor first."""
+    qkv, dout = packed
+    t, (q, k, v) = _views(qkv.astype(np.float32))
+    for view in (q, k, v):
+        assert tfa._in_place(view) is view
+    g = torch.from_numpy(dout.copy())
+    assert tfa._in_place(g) is g
+    for odd in (g.transpose(-1, -2), torch.zeros((B, S, H, D + 4))[..., :D]):
+        copied = tfa._in_place(odd)
+        assert copied is not odd and copied.is_contiguous() and torch.equal(copied, odd)
