@@ -1,25 +1,18 @@
-// Flash-attention forward for Hopper (sm_90a): causal or full, masked or
-// dense, GQA, bf16 in / fp32 accumulate, with or without the fp32 logsumexp
-// rows that the backward (flash_bwd.cu) reads. One kernel template over the
-// head dim: d = 128 (the 7B decoder, every mode) and d = 64 (the UMT ViT,
-// dense and non-causal only, with or without lse).
+// Flash-attention forward for Hopper (sm_90a) at head dim 128 (the 7B
+// decoder): causal or full, masked or dense, GQA, bf16 in / fp32
+// accumulate, with or without the fp32 logsumexp rows that the backward
+// (flash_bwd.cu) reads. The head dim is a template parameter, instantiated
+// at 128 only; the UMT ViT's d = 64 dense forward (B2, B2-lse) is
+// flash_fwd_dense.cu, a design of its own.
 //
 // Replaces: blim_tpu/kernels/flash_attention.py `_fwd_kernel` (:42-125),
-// launched by `_flash_forward` -> pl.pallas_call (:178), in three uses:
+// launched by `_flash_forward` -> pl.pallas_call (:178), in two uses:
 //   * B1: without lse in the causal masked mode that every prefix forward of
 //     the zero-shot rerank path runs (qwen2.forward_collect_kv ->
-//     attention.multi_head_attention), d = 128; the B1-lse instantiation
-//     with the lse store compiled out;
+//     attention.multi_head_attention); the B1-lse instantiation with the
+//     lse store compiled out;
 //   * B1-lse: with lse (`lse_ref`, :121-125, via `_vjp_fwd` :434) for every
-//     attention call of the LoRA train step, d = 128;
-//   * B2: dense non-causal, no masks (the `dense` branch :140-144 with the
-//     unrolled KV loop :104-111, picked by the wrapper at :498-510), d = 64:
-//     every attention of the UMT ViT-L tower in feature extraction
-//     (umt_vit.vit_block), q, k, v read in place as strided views of the
-//     packed qkv projection;
-//   * B2-lse: the same dense mode with lse (via `_vjp_fwd` :434), d = 64:
-//     every attention of the tower when it is differentiated, ahead of
-//     flash_bwd.cu's d = 64 backward.
+//     attention call of the LoRA train step.
 //
 // Semantics, the same as the TPU kernel and the plain version
 // (kernels/attention.py::reference_attention):
@@ -40,18 +33,12 @@
 //     value reaches no gradient.
 //
 // What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16).
-//   * B1/B1-lse are bound by bytes. At the main-path shapes (G = 4 packs of
-//     S = 341, or the train step's B = 4 of S = 448; Hq 28, Hkv 4, d 128,
-//     causal) one launch moves 6-7 MB (q, k, v, o once, lse, masks): ~2 us
-//     at 3.35 TB/s against ~1 us of tensor-core time. With at most 4 KV
-//     tiles a CTA, what the kernel actually pays is latency: the first
-//     tile's load, then a chain of products and the softmax per tile.
-//   * B2 is bound by operations. Per clip (S = 3136, 16 heads of 64) it
-//     does 4 S^2 d H = 40.3 GFLOP and moves 25.7 MB: at 8 clips one launch
-//     is 0.326 ms of bf16 tensor-core time against 0.061 ms of HBM time. At
-//     d = 64 the softmax's exponentials (S^2 H a clip, 16 a clock per SM)
-//     take as long as the two products, so the softmax has to stay in
-//     registers and overlap the tensor cores.
+//   B1/B1-lse are bound by bytes. At the main-path shapes (G = 4 packs of
+//   S = 341, or the train step's B = 4 of S = 448; Hq 28, Hkv 4, d 128,
+//   causal) one launch moves 6-7 MB (q, k, v, o once, lse, masks): ~2 us
+//   at 3.35 TB/s against ~1 us of tensor-core time. With at most 4 KV
+//   tiles a CTA, what the kernel actually pays is latency: the first
+//   tile's load, then a chain of products and the softmax per tile.
 //
 // Design (FlashAttention-3's shape):
 //   * A CTA owns 128 q rows of one (batch, q-head) and runs three
@@ -61,12 +48,12 @@
 //   * The producer's first warp loads the q tile once and streams K and V
 //     tiles of 128 rows by TMA (cp.async.bulk.tensor, 4-D maps over
 //     (d, S, H, B) built on the host from the operands' strides, so strided
-//     views such as B2's slices of the packed qkv are read in place) into
-//     a ring of stages (3 at d = 64, 2 at d = 128) guarded by mbarriers: a
-//     full barrier per K and V buffer, an empty barrier that each consumer
-//     warp arrives on when its products have read the stage. Rows beyond S
-//     come back as zeros. In the masked mode the same warp turns the key
-//     mask of each tile into 128 bits in shared memory beside it.
+//     views are read in place) into a ring of 2 stages guarded by
+//     mbarriers: a full barrier per K and V buffer, an empty barrier that
+//     each consumer warp arrives on when its products have read the stage.
+//     Rows beyond S come back as zeros. In the masked mode the same warp
+//     turns the key mask of each tile into 128 bits in shared memory beside
+//     it.
 //   * Tiles are 128B-swizzled, 64 columns (128 B) a box: d = 128 takes two
 //     boxes per tile, stored as two 64-column halves.
 //   * S = Q K^T is wgmma m64n128k16 with Q and K in shared memory (both
@@ -82,8 +69,8 @@
 //     the ragged last tile and (masked mode) every tile mask by position
 //     and by the key-mask bits; other tiles run without a mask.
 //   * Grid order: dense, the q tiles of one (batch, head) are neighbours so
-//     they share its K/V in L2 (B2: 25 q tiles x 16 heads x clips CTAs);
-//     causal, the heaviest q tiles (most KV tiles) launch first.
+//     they share its K/V in L2; causal, the heaviest q tiles (most KV
+//     tiles) launch first.
 //   * The epilogue divides by l, zeroes masked query rows and writes bf16
 //     pairs straight from registers; with lse, one lane of each quad writes
 //     its two rows' lse.
@@ -107,7 +94,7 @@ static_assert(kBQ == 64 * kConsumers, "each consumer warpgroup owns 64 q rows");
 template <int kD>
 struct Smem {
   static constexpr int kHalves = kD / 64;            // 64-column (128 B) halves
-  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr int kStages = 2;
   bf16 q[kHalves][kBQ * 64];
   bf16 k[kStages][kHalves][kBK * 64];
   bf16 v[kStages][kHalves][kBK * 64];
@@ -404,10 +391,10 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 // 16-byte aligned, with other strides that are multiples of 8 elements;
 // masks are int32 (B, S) with unit stride along S, both null for the dense
 // variant. `lse` is null (inference) or fp32 (B, Hq, S) with unit stride
-// along S. head_dim 128 takes every mode; head_dim 64 only the dense
-// non-causal mode (no masks), with or without lse. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a mode
-// that has no instantiation or operands that TMA cannot describe.
+// along S. head_dim must be 128 (d = 64 is flash_fwd_dense.cu's). Launches
+// on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for another head dim or operands that TMA cannot
+// describe.
 extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               const int* key_mask, const int* query_mask, void* out,
                               float* lse, long long lse_sb, long long lse_sh,
@@ -419,8 +406,7 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
                               long long o_sb, long long o_ss, long long o_sh,
                               long long mask_sb, float scale, int causal, void* stream) {
   const bool masked = key_mask != nullptr;
-  const bool dense64 = head_dim == 64 && !masked && query_mask == nullptr && !causal;
-  if (!(head_dim == 128 || dense64) || batch <= 0 || seq_len <= 0 || num_kv_heads <= 0 ||
+  if (head_dim != 128 || batch <= 0 || seq_len <= 0 || num_kv_heads <= 0 ||
       num_q_heads % num_kv_heads != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -448,10 +434,6 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
 
   const int grid = ((seq_len + kBQ - 1) / kBQ) * num_q_heads * batch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dense64) {
-    return (int)(lse ? launch<64, false, true>(tq, tk, tv, p, grid, st)
-                     : launch<64, false, false>(tq, tk, tv, p, grid, st));
-  }
   if (masked) {
     return (int)(lse ? launch<128, true, true>(tq, tk, tv, p, grid, st)
                      : launch<128, true, false>(tq, tk, tv, p, grid, st));
@@ -463,7 +445,7 @@ extern "C" int blim_flash_fwd(const void* q, const void* k, const void* v,
 // Dynamic shared memory a CTA of the kernel uses at this head dim, in bytes
 // (0 for a head dim without an instantiation).
 extern "C" int blim_flash_fwd_smem_bytes(int head_dim) {
-  return head_dim == 128 ? smem_bytes<128>() : head_dim == 64 ? smem_bytes<64>() : 0;
+  return head_dim == 128 ? smem_bytes<128>() : 0;
 }
 
 extern "C" const char* blim_cuda_error_string(int code) {

@@ -1,10 +1,12 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels
-(csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_dense.cu), their
-wrappers, their plain PyTorch versions and the autograd Function that joins
-them. Port of blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse
-(B1, the zero-shot prefix forwards, d = 128), with lse (B1-lse, `_vjp_fwd`),
-and in its dense non-causal mode at d = 64 without lse (B2, every attention
-of the UMT ViT) and with it (B2-lse, the ViT under autograd), `_dq_kernel`
+(csrc/flash_fwd.cu, csrc/flash_fwd_dense.cu, csrc/flash_bwd.cu,
+csrc/flash_bwd_dense.cu), their wrappers, their plain PyTorch versions and
+the autograd Function that joins them. Port of
+blim_tpu/kernels/flash_attention.py: `_fwd_kernel` without lse (B1, the
+zero-shot prefix forwards, d = 128, flash_fwd.cu), with lse (B1-lse,
+`_vjp_fwd`), and in its dense non-causal mode at d = 64 without lse (B2,
+every attention of the UMT ViT, flash_fwd_dense.cu) and with it (B2-lse,
+the ViT under autograd), `_dq_kernel`
 (B3) and `_dkv_kernel` (B4) at d = 128, both of them at d = 64 dense and
 non-causal as one fused kernel (flash_bwd_dense, between its preprocess and
 convert passes), and the custom VJP `_flash_attention`.
@@ -21,12 +23,12 @@ Dispatch. A CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel or raises. The head dims the kernels take are those the sources
 instantiate: 128 in every mode (B1, B1-lse, B3, B4); 64 only dense (no
 masks) and non-causal (B2, B2-lse, flash_bwd_dense), the ViT's mode; any
-other raises. The counters count kernel launches and nothing else:
-`launches` (B1, inference), `launches_lse` (B1-lse), `launches_dense` (B2),
-`launches_dense_lse` (B2-lse), `launches_dq` (B3), `launches_dkv` (B4),
-`launches_bwd_dense` (the fused d = 64 backward), `launches_bwd_dense_prep`
-and `launches_bwd_dense_convert` (its two passes). Callers reset them to 0
-to check that a path went through the kernels.
+other raises. The counters count kernel launches and nothing else: `launches` (B1, inference), `launches_lse` (B1-lse),
+`launches_dense` (B2), `launches_dense_lse` (B2-lse), `launches_dq` (B3),
+`launches_dkv` (B4), `launches_bwd_dense` (the fused d = 64 backward),
+`launches_bwd_dense_prep` and `launches_bwd_dense_convert` (its two
+passes). Callers reset them to 0 to check that a path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ import torch
 from blim_tpu_torch.kernels.attention import NEG_INF, reference_attention
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu",
-           "flash_bwd_dense": CSRC / "flash_bwd_dense.cu"}
+SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_fwd_dense": CSRC / "flash_fwd_dense.cu",
+           "flash_bwd": CSRC / "flash_bwd.cu", "flash_bwd_dense": CSRC / "flash_bwd_dense.cu"}
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,6 +56,8 @@ NVCC_FLAGS = (
 HEAD_DIM = 128        # B1, B1-lse, B3, B4 (the 7B decoder)
 DENSE_HEAD_DIM = 64   # B2, B2-lse, flash_bwd_dense (the UMT ViT-L: hidden 1024 over 16 heads)
 DQ_TILE_ROWS = 64     # flash_bwd_dense's q tile: one tile of its fp32 dQ accumulator
+DENSE_Q_ROWS = 192    # flash_fwd_dense's q rows a CTA: three consumer warpgroups of 64
+DENSE_KV_TILE = 112   # flash_fwd_dense's kv tile: 28 tiles at the ViT's S = 3136, 7 at 784
 
 launches = 0          # B1 (no lse) launches since the caller last reset it
 launches_lse = 0      # B1-lse launches
@@ -137,43 +141,59 @@ def build(names=tuple(SOURCES)) -> Dict[str, str]:
     return reports
 
 
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declares the C entry points of the library built from SOURCES[name]
+    (a copy of it, such as an edited variant, takes the same name)."""
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    if name == "flash_fwd":
+        lib.blim_flash_fwd.argtypes = (
+            [ptr] * 7 + [i64] * 2 + [i32] * 5 + [i64] * 13 + [f32, i32, ptr]
+        )
+        lib.blim_flash_fwd.restype = i32
+        lib.blim_flash_fwd_smem_bytes.argtypes = [i32]
+        lib.blim_flash_fwd_smem_bytes.restype = i32
+        lib.blim_cuda_error_string.argtypes = [i32]
+        lib.blim_cuda_error_string.restype = ctypes.c_char_p
+    elif name == "flash_fwd_dense":
+        lib.blim_flash_fwd_dense.argtypes = (
+            [ptr] * 5 + [i64] * 2 + [i32] * 4 + [i64] * 12 + [f32, ptr]
+        )
+        lib.blim_flash_fwd_dense.restype = i32
+        lib.blim_flash_fwd_dense_smem_bytes.argtypes = []
+        lib.blim_flash_fwd_dense_smem_bytes.restype = i32
+        lib.blim_flash_fwd_dense_error_string.argtypes = [i32]
+        lib.blim_flash_fwd_dense_error_string.restype = ctypes.c_char_p
+    elif name == "flash_bwd":
+        lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 16 + [f32, i32, ptr]
+        lib.blim_flash_dq.restype = i32
+        lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 19 + [f32, i32, ptr]
+        lib.blim_flash_dkv.restype = i32
+        lib.blim_flash_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.blim_flash_bwd_smem_bytes.restype = i32
+        lib.blim_flash_dkv_cluster_occupancy.argtypes = [i32]
+        lib.blim_flash_dkv_cluster_occupancy.restype = i32
+        lib.blim_flash_bwd_error_string.argtypes = [i32]
+        lib.blim_flash_bwd_error_string.restype = ctypes.c_char_p
+    elif name == "flash_bwd_dense":
+        lib.blim_flash_bwd_dense_prep.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 6 + [ptr]
+        lib.blim_flash_bwd_dense_prep.restype = i32
+        lib.blim_flash_bwd_dense.argtypes = [ptr] * 9 + [i32] * 3 + [i64] * 18 + [f32, ptr]
+        lib.blim_flash_bwd_dense.restype = i32
+        lib.blim_flash_bwd_dense_convert.argtypes = [ptr] * 2 + [i32] * 3 + [i64] * 3 + [f32, ptr]
+        lib.blim_flash_bwd_dense_convert.restype = i32
+        lib.blim_flash_bwd_dense_smem_bytes.argtypes = []
+        lib.blim_flash_bwd_dense_smem_bytes.restype = i32
+        lib.blim_flash_bwd_dense_error_string.argtypes = [i32]
+        lib.blim_flash_bwd_dense_error_string.restype = ctypes.c_char_p
+    else:
+        raise ValueError(f"no library named {name!r}")
+    return lib
+
+
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        if name == "flash_fwd":
-            lib.blim_flash_fwd.argtypes = (
-                [ptr] * 7 + [i64] * 2 + [i32] * 5 + [i64] * 13 + [f32, i32, ptr]
-            )
-            lib.blim_flash_fwd.restype = i32
-            lib.blim_flash_fwd_smem_bytes.argtypes = [i32]
-            lib.blim_flash_fwd_smem_bytes.restype = i32
-            lib.blim_cuda_error_string.argtypes = [i32]
-            lib.blim_cuda_error_string.restype = ctypes.c_char_p
-        elif name == "flash_bwd":
-            lib.blim_flash_dq.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 16 + [f32, i32, ptr]
-            lib.blim_flash_dq.restype = i32
-            lib.blim_flash_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 19 + [f32, i32, ptr]
-            lib.blim_flash_dkv.restype = i32
-            lib.blim_flash_bwd_smem_bytes.argtypes = [i32, i32]
-            lib.blim_flash_bwd_smem_bytes.restype = i32
-            lib.blim_flash_dkv_cluster_occupancy.argtypes = [i32]
-            lib.blim_flash_dkv_cluster_occupancy.restype = i32
-            lib.blim_flash_bwd_error_string.argtypes = [i32]
-            lib.blim_flash_bwd_error_string.restype = ctypes.c_char_p
-        else:
-            lib.blim_flash_bwd_dense_prep.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 6 + [ptr]
-            lib.blim_flash_bwd_dense_prep.restype = i32
-            lib.blim_flash_bwd_dense.argtypes = [ptr] * 9 + [i32] * 3 + [i64] * 18 + [f32, ptr]
-            lib.blim_flash_bwd_dense.restype = i32
-            lib.blim_flash_bwd_dense_convert.argtypes = [ptr] * 2 + [i32] * 3 + [i64] * 3 + [f32, ptr]
-            lib.blim_flash_bwd_dense_convert.restype = i32
-            lib.blim_flash_bwd_dense_smem_bytes.argtypes = []
-            lib.blim_flash_bwd_dense_smem_bytes.restype = i32
-            lib.blim_flash_bwd_dense_error_string.argtypes = [i32]
-            lib.blim_flash_bwd_dense_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = bind(ctypes.CDLL(str(library_path(name))), name)
     return _libs[name]
 
 
@@ -345,12 +365,11 @@ def reference_bwd_dense_convert(acc: torch.Tensor, seq_len: int, scale: float) -
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool,
-                head_dim: int = HEAD_DIM):
-    """One launch of flash_fwd.cu; the caller counts it."""
+def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool):
+    """One launch of flash_fwd.cu (d = 128); the caller counts it."""
     dev = _cuda_device(q, "flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, dev, head_dim)
+        _check_operand(name, t, dev)
     _check_shapes(q, k, v)
     b, s, hq, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -367,13 +386,49 @@ def _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if dense else km.data_ptr(), None if dense else qm.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), hq * s, s,
-        b, s, hq, k.shape[2], head_dim,
+        b, s, hq, k.shape[2], HEAD_DIM,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         0 if dense else km.stride(0),
         float(scale), int(bool(causal)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "flash_fwd", lib.blim_cuda_error_string)
+    return out, lse
+
+
+def _dense_forward_call(q, k, v, with_lse: bool, scale: float):
+    """flash_fwd_dense.cu's C entry point on operands that it reads in place
+    (q (B, S, Hq, 64), k, v (B, S, Hkv, 64) bf16, checked by the caller):
+    (out, lse or None, call), the outputs contiguous. `call` launches one
+    kernel on the current stream and returns its CUDA error code; nothing
+    is checked or counted."""
+    lib = _library("flash_fwd_dense")
+    b, s, hq, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if with_lse else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), hq * s, s, b, s, hq, k.shape[2],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], float(scale))
+
+    def call() -> int:
+        return lib.blim_flash_fwd_dense(*args, torch.cuda.current_stream(q.device).cuda_stream)
+
+    call.operands = (q, k, v, out, lse)   # the pointers in args stay valid while call lives
+    return out, lse, call
+
+
+def _launch_fwd_dense(q, k, v, scale, with_lse: bool):
+    """One launch of flash_fwd_dense.cu (d = 64, dense, non-causal); the
+    caller counts it."""
+    dev = _cuda_device(q, "flash_attention_dense")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, dev, DENSE_HEAD_DIM)
+    _check_shapes(q, k, v)
+    out, lse, call = _dense_forward_call(q, k, v, with_lse, scale)
+    if q.numel() == 0:
+        return out, lse
+    _raise_on(call(), "flash_fwd_dense",
+              _library("flash_fwd_dense").blim_flash_fwd_dense_error_string)
     return out, lse
 
 
@@ -406,19 +461,19 @@ def flash_attention_lse(q, k, v, *, key_mask=None, query_mask=None, causal=True,
                         scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1-lse: flash_attention's output and the fp32 logsumexp rows (B, Hq, S),
     written for rows < S. At head dim 64 without masks and not causal (the
-    ViT's mode, operands possibly strided views) it is B2-lse."""
+    ViT's mode, operands possibly strided views) it is B2-lse, launched from
+    flash_fwd_dense.cu."""
     global launches_lse, launches_dense_lse
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention_lse(q, k, v, key_mask, query_mask, causal, scale)
-    head_dim = kernel_head_dim(q, key_mask, query_mask, causal)
-    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True,
-                      head_dim=head_dim)
-    if head_dim == DENSE_HEAD_DIM:
+    if kernel_head_dim(q, key_mask, query_mask, causal) == DENSE_HEAD_DIM:
+        out = _launch_fwd_dense(q, k, v, scale, with_lse=True)
         launches_dense_lse += 1
-    else:
-        launches_lse += 1
+        return out
+    out = _launch_fwd(q, k, v, key_mask, query_mask, causal, scale, with_lse=True)
+    launches_lse += 1
     return out
 
 
@@ -427,15 +482,15 @@ def flash_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """B2, inference: full (non-causal) attention without masks at head dim
     64, the UMT ViT's. q (B,S,Hq,64); k,v (B,S,Hkv,64) bf16 -> (B,S,Hq,64).
     The operands may be strided views (the ViT passes slices of its packed
-    qkv projection, read in place). A CPU tensor takes the plain version,
-    reference_attention(causal=False) with no masks."""
+    qkv projection, read in place) and launch flash_fwd_dense.cu. A CPU
+    tensor takes the plain version, reference_attention(causal=False) with
+    no masks."""
     global launches_dense
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention(q, k, v, None, None, False, scale)
-    out = _launch_fwd(q, k, v, None, None, False, scale, with_lse=False,
-                      head_dim=DENSE_HEAD_DIM)[0]
+    out = _launch_fwd_dense(q, k, v, scale, with_lse=False)[0]
     launches_dense += 1
     return out
 

@@ -6,7 +6,8 @@
 Phases, one line each (all numbers beside the card's name and power limit):
   1. build    compile every hand-written kernel from the checkout's sources
               (nvcc, sm_90a, one process per source, all at once) and print
-              each kernel's registers, spills and shared memory;
+              each kernel's registers, spills and shared memory; a spill or
+              a ptxas warning that it serialized a kernel's wgmma fails;
   2. kernels  hold B1 (flash_fwd, inference) to its plain PyTorch version
               at the zero-shot path's shapes, and time kernel, plain
               version, one PyTorch library call of the same function
@@ -69,11 +70,14 @@ Phases, one line each (all numbers beside the card's name and power limit):
   8. gradcheck  at full width and GRADCHECK_LAYERS layers, the loss and the
               LoRA gradients through the kernels against the same step
               through the plain attention;
-  9. vit-kernel  B2 (flash_fwd_dense, d = 64, dense non-causal) against its
-              plain version at VIT_CLIPS clips of the ViT's (clips, 3136, 16,
-              64), q, k, v strided views of one packed qkv tensor; timed like
-              phase 2 (library yardstick: SDPA), and kernel and SDPA again at
-              the featurizer's EXTRACT_B x 4 clips;
+  9. vit-kernel  B2 (flash_fwd_dense.cu, d = 64, dense non-causal) against
+              its plain version at VIT_CLIPS clips of the ViT's (clips, 3136,
+              16, 64), q, k, v strided views of one packed qkv tensor, and at
+              the featurizer's EXTRACT_B x 4 clips (the plain version
+              VIT_CLIPS clips at a time); both timed like phase 2 (library
+              yardstick: SDPA), each line with the bound, the exponentials'
+              floor and the share of the bound reached; then B2 and B2-lse,
+              untimed, at RAGGED_S, whose q and kv tiles are both ragged;
  10. extract  the UMT ViT-L tower at res448, full depth, in bf16 from SEED on
               the card, with ToMe: the featurizer at EXTRACT_B videos (one
               untimed batch, EXTRACT_TIMED timed in a pipeline, launches
@@ -207,6 +211,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -219,6 +224,9 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, dense bf16 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+TENSOR_FLOPS_PER_CLOCK = 4096 # dense bf16 tensor-core flops a clock an SM
+EXP_PER_CLOCK = 16            # exp2 (ex2.approx) a clock an SM on the SFUs
 
 ATTN_ATOL, ATTN_RTOL = 1e-2, 2e-2   # |kernel - plain| <= atol + rtol |plain|:
                      # two bf16 ulps (both round P and O to bf16, at different
@@ -301,6 +309,7 @@ GRADCHECK_TOL = 5e-2        # |kernel - plain| per LoRA leaf over max|plain|: bf
                             # activations through 2 layers, P and dS rounded to
                             # bf16 in the kernels, in another order in the plain
 
+RAGGED_S = 1000      # phase 9's untimed sequence length: no multiple of a q or a kv tile
 VIT_CLIPS = 8        # B2's check and record shape: the end-to-end batch, 2 videos x 4 clips;
                      # also B2-lse's, the fused d 64 backward's and the whole tower's
                      # gradient (phase 16)
@@ -457,6 +466,17 @@ def raw_fwd(q, k, v, mask=None, causal=True, with_lse=False):
     return call
 
 
+def raw_fwd_dense(q, k, v, with_lse=False):
+    """A zero-argument call of flash_fwd_dense.cu's C entry point on q, k, v
+    (d = 64) read in place, its outputs allocated once: no checks, no launch
+    counted."""
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    _, _, call = fa._dense_forward_call(q, k, v, with_lse, q.shape[-1] ** -0.5)
+    return checked(call, "flash_fwd_dense",
+                   fa._library("flash_fwd_dense").blim_flash_fwd_dense_error_string)
+
+
 def checked(call, name, error_string):
     """call, failing the run when its C entry point returns a CUDA error."""
     def run():
@@ -579,19 +599,26 @@ def phase_build():
     t0 = time.time()
     reports = fa.build()              # one nvcc per source, all started together
     secs = time.time() - t0
+    faults = []
     for name, report in reports.items():
         print(f"[build] {fa.SOURCES[name].name} -> {fa.library_path(name).name} for sm_90a"
               + ("" if report else " (already built)"), flush=True)
         for ln in report.splitlines():
             if any(w in ln for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"[build]   {ln.strip()}", flush=True)
+            if "serializ" in ln.lower() or any(c in ln for c in ("C7514", "C7515", "C7520")):
+                faults.append(f"{fa.SOURCES[name].name}: {ln.strip()}")
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)):
+            faults.append(f"{fa.SOURCES[name].name} spills registers")
+    if faults:
+        fail("ptxas: " + "; ".join(faults))
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
-    dense = fa._library("flash_bwd_dense")
+    fwd_dense, bwd_dense = fa._library("flash_fwd_dense"), fa._library("flash_bwd_dense")
     print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
-          f"at d 128, {fwd.blim_flash_fwd_smem_bytes(64)} B at d 64 (flash_fwd_dense, "
-          f"flash_fwd_dense_lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B, "
+          f"(d 128), flash_fwd_dense {fwd_dense.blim_flash_fwd_dense_smem_bytes()} B (d 64, "
+          f"B2 and B2-lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B, "
           f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1, 128)} B (d 128), flash_bwd_dense "
-          f"{dense.blim_flash_bwd_dense_smem_bytes()} B (d 64)", flush=True)
+          f"{bwd_dense.blim_flash_bwd_dense_smem_bytes()} B (d 64)", flush=True)
     occupancy = bwd.blim_flash_dkv_cluster_occupancy(7)
     if occupancy < 0:
         fail(f"flash_dkv cluster occupancy query: CUDA error {-occupancy}")
@@ -2727,8 +2754,52 @@ def vit_attention_bound_ms(clips, s, h, d, with_lse=False):
     return roofline_ms(nbytes, 4.0 * clips * h * s * s * d)
 
 
+def exp_floor_ms(n_exp):
+    """The least time the card's SFUs take for n_exp exponentials: 16 a
+    clock an SM on 132 SMs, at the clock the bf16 peak implies (989 TFLOP/s
+    over 4096 tensor-core flops a clock an SM: 1.829 GHz). At d = 64 a
+    dense pair costs 4 d = 256 tensor-core flops and one exponential, so
+    this floor equals the tensor-core bound; at d = 128 it is half of it."""
+    clock = PEAK_BF16_FLOPS / (SMS * TENSOR_FLOPS_PER_CLOCK)
+    return n_exp / (EXP_PER_CLOCK * SMS * clock) * 1e3
+
+
+def dense_gap(out, q, k, v, lse=None):
+    """B2's (or B2-lse's) output against the plain version, VIT_CLIPS clips
+    at a time: (max |kernel - plain|, max of |kernel - plain| - ATTN_RTOL
+    |plain|, max |lse - plain lse| or 0)."""
+    from blim_tpu_torch.kernels import flash_attention as fa
+
+    err = excess = err_lse = 0.0
+    for i in range(0, q.shape[0], VIT_CLIPS):
+        part = slice(i, i + VIT_CLIPS)
+        ref, ref_lse = fa.reference_attention_lse(q[part], k[part], v[part], None, None, False,
+                                                  q.shape[-1] ** -0.5)
+        diff = (out[part].float() - ref.float()).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - ATTN_RTOL * ref.float().abs()).max().item())
+        if lse is not None:
+            err_lse = max(err_lse, (lse[part] - ref_lse).abs().max().item())
+        del ref, ref_lse, diff
+    return err, excess, err_lse
+
+
+def dense_timing(ms, lib_ms, clips, s, h, d, with_lse=False):
+    """The bound, the exponentials' floor and the text that a B2 or B2-lse
+    line prints beside its check: the kernel's time, SDPA's in the same run,
+    both floors and the share of the bound reached."""
+    bound_ms, bound_by = vit_attention_bound_ms(clips, s, h, d, with_lse)
+    floor = exp_floor_ms(clips * h * s * s)
+    text = (f"kernel {ms:.4f} ms (raw entry point, CUDA graph), sdpa {lib_ms:.4f} ms (CUDA graph; "
+            f"kernel {lib_ms / ms:.2f}x faster), bound {bound_ms:.4f} ms ({bound_by}), exponential "
+            f"floor {floor:.4f} ms: kernel at {100 * bound_ms / ms:.1f}% of the bound, "
+            f"{4.0 * clips * h * s * s * d / ms / 1e9:.1f} TFLOP/s")
+    return bound_ms, bound_by, floor, text
+
+
 def phase_vit_kernel(card):
-    """B2 against its plain version at the ViT's shapes, with times."""
+    """B2 (flash_fwd_dense.cu) against its plain version at the ViT's
+    shapes, with times; then B2 and B2-lse at a ragged S, untimed."""
     import torch
     import torch.nn.functional as F
 
@@ -2741,55 +2812,77 @@ def phase_vit_kernel(card):
     s, h = vcfg.num_frames * vcfg.patches_per_frame, vcfg.num_attention_heads
     d = vcfg.hidden_size // h
 
-    def packed(clips):
-        qkv = torch.randn((clips, s, 3, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    def packed(clips, seq=s):
+        qkv = torch.randn((clips, seq, 3, h, d), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
+    def launched_once(call, counter):
+        before = fa.counts()
+        out = call()
+        torch.cuda.synchronize()
+        if fa.counts() != dict(before, **{counter: before[counter] + 1}):
+            fail(f"{counter}: the wrapper did not launch it once ({before} -> {fa.counts()})")
+        return out
+
     q, k, v = packed(VIT_CLIPS)
-    before = fa.counts()
-    out = fa.flash_attention_dense(q, k, v)
-    torch.cuda.synchronize()
-    after = fa.counts()
-    if after != dict(before, flash_fwd_dense=before["flash_fwd_dense"] + 1):
-        fail(f"flash_fwd_dense: the wrapper did not launch B2 once ({before} -> {after})")
-    ref = reference_attention(q, k, v, None, None, False, d ** -0.5)
+    out = launched_once(lambda: fa.flash_attention_dense(q, k, v), "flash_fwd_dense")
     if not torch.isfinite(out).all():
         fail("flash_fwd_dense: non-finite output")
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
-    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
-    del ref, diff
-    ms = graph_time_ms(raw_fwd(q, k, v, causal=False), iters=10, replays=2)
+    err, excess, _ = dense_gap(out, q, k, v)
+    ms = graph_time_ms(raw_fwd_dense(q, k, v), iters=10, replays=2)
     wrapper_ms = gpu_time_ms(lambda: fa.flash_attention_dense(q, k, v), iters=10)
     plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, None, None, False, d ** -0.5),
                            iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10,
                            replays=2)
-    bound_ms, bound_by = vit_attention_bound_ms(VIT_CLIPS, s, h, d)
+    bound_ms, bound_by, floor, timing = dense_timing(ms, lib_ms, VIT_CLIPS, s, h, d)
     print(f"[vit-kernel] flash_fwd_dense {VIT_CLIPS} clips ({VIT_CLIPS}, {s}, {h}, {d}) strided "
           f"views of a packed qkv: max|d|={err:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) "
-          f"kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms "
-          f"({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound, "
-          f"{4.0 * VIT_CLIPS * h * s * s * d / ms / 1e9:.1f} TFLOP/s [{card}]", flush=True)
+          f"{timing}; wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
     if excess > ATTN_ATOL:
         fail(f"flash_fwd_dense: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| "
              f"(max |d| {err:.3e})")
     record = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=lib_ms, max_abs_err=err)
+                  bound_by=bound_by, exp_floor_ms=floor, library_ms=lib_ms, max_abs_err=err)
     del q, k, v, qt, kt, vt, out
+
     clips = EXTRACT_B * 4
     q, k, v = packed(clips)
-    ms_f = graph_time_ms(raw_fwd(q, k, v, causal=False), iters=5, replays=1)
+    out = launched_once(lambda: fa.flash_attention_dense(q, k, v), "flash_fwd_dense")
+    err_f, excess_f, _ = dense_gap(out, q, k, v)
+    ms_f = graph_time_ms(raw_fwd_dense(q, k, v), iters=5, replays=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_f = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5,
                           replays=1)
-    bound_f, _ = vit_attention_bound_ms(clips, s, h, d)
-    print(f"[vit-kernel] flash_fwd_dense {clips} clips (the featurizer's batch): kernel "
-          f"{ms_f:.4f} ms, sdpa {lib_f:.4f} ms, bound {bound_f:.4f} ms: kernel at "
-          f"{100 * bound_f / ms_f:.1f}% of the bound [{card}]", flush=True)
-    record["featurizer_batch"] = dict(clips=clips, ms=ms_f, library_ms=lib_f, bound_ms=bound_f)
+    bound_f, _, floor_f, timing = dense_timing(ms_f, lib_f, clips, s, h, d)
+    print(f"[vit-kernel] flash_fwd_dense {clips} clips (the featurizer's batch): max|d|="
+          f"{err_f:.3e} (plain {VIT_CLIPS} clips at a time) {timing} [{card}]", flush=True)
+    if excess_f > ATTN_ATOL:
+        fail(f"flash_fwd_dense at {clips} clips: |kernel - plain| exceeds {ATTN_ATOL} + "
+             f"{ATTN_RTOL}|plain| (max |d| {err_f:.3e})")
+    record["featurizer_batch"] = dict(clips=clips, ms=ms_f, library_ms=lib_f, bound_ms=bound_f,
+                                      exp_floor_ms=floor_f, max_abs_err=err_f)
+    del q, k, v, qt, kt, vt, out
+
+    q, k, v = packed(2, RAGGED_S)
+    out = launched_once(lambda: fa.flash_attention_dense(q, k, v), "flash_fwd_dense")
+    out_lse, lse = launched_once(lambda: fa.flash_attention_lse(q, k, v, causal=False),
+                                 "flash_fwd_dense_lse")
+    err_r, excess_r, _ = dense_gap(out, q, k, v)
+    err_rl, excess_rl, err_lse = dense_gap(out_lse, q, k, v, lse)
+    finite = all(torch.isfinite(x).all() for x in (out, out_lse, lse))
+    print(f"[vit-kernel] flash_fwd_dense and flash_fwd_dense_lse at a ragged S (2, {RAGGED_S}, "
+          f"{h}, {d}) ({-(-RAGGED_S // fa.DENSE_Q_ROWS)} q tiles of {fa.DENSE_Q_ROWS} rows, "
+          f"{-(-RAGGED_S // fa.DENSE_KV_TILE)} kv tiles of {fa.DENSE_KV_TILE}, both ragged): "
+          f"max|d| out {err_r:.3e}, with lse {err_rl:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), "
+          f"lse {err_lse:.3e} (tol {LSE_TOL}), finite {finite} [{card}]", flush=True)
+    if not finite or max(excess_r, excess_rl) > ATTN_ATOL or err_lse > LSE_TOL:
+        fail(f"flash_fwd_dense at S = {RAGGED_S}: kernel and plain disagree")
+    record["ragged"] = dict(shape=[2, RAGGED_S, h, h, d], max_abs_err=max(err_r, err_rl),
+                            lse_max_abs_err=err_lse)
+    record["max_abs_err"] = max(err, err_f, err_r, err_rl)
     return record
 
 
@@ -3025,24 +3118,23 @@ def vit_grad_kernels(card):
     excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     del diff, out, lse
-    ms = graph_time_ms(raw_fwd(q, k, v, causal=False, with_lse=True), iters=10, replays=2)
+    ms = graph_time_ms(raw_fwd_dense(q, k, v, with_lse=True), iters=10, replays=2)
     wrapper_ms = gpu_time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=False), iters=10)
     plain_ms = gpu_time_ms(lambda: fa.reference_attention_lse(q, k, v, None, None, False, scale),
                            iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
     lib_ms = graph_time_ms(sdpa, iters=10, replays=2)   # with grad on, it also keeps its lse
-    bound_ms, bound_by = vit_attention_bound_ms(clips, s, h, d, with_lse=True)
+    bound_ms, bound_by, floor, timing = dense_timing(ms, lib_ms, clips, s, h, d, with_lse=True)
     print(f"[vit-grad] flash_fwd_dense_lse {shape}: max|d| out {err_o:.3e} (tol {ATTN_ATOL} + "
-          f"{ATTN_RTOL}|plain|), lse {err_lse:.3e} (tol {LSE_TOL}); kernel {ms:.4f} ms (raw entry "
-          f"point, CUDA graph), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd "
-          f"{lib_ms:.4f} ms (CUDA graph), bound {bound_ms:.4f} ms ({bound_by}): kernel at "
-          f"{100 * bound_ms / ms:.1f}% of the bound [{card}]", flush=True)
+          f"{ATTN_RTOL}|plain|), lse {err_lse:.3e} (tol {LSE_TOL}); {timing} (sdpa: its forward "
+          f"with grad); wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
     if excess > ATTN_ATOL or err_lse > LSE_TOL:
         fail("flash_fwd_dense_lse: kernel and plain disagree")
     records["flash_fwd_dense_lse"] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                           bound_ms=bound_ms, bound_by=bound_by,
-                                          library_ms=lib_ms, max_abs_err=max(err_o, err_lse))
+                                          exp_floor_ms=floor, library_ms=lib_ms,
+                                          max_abs_err=max(err_o, err_lse))
 
     # the fused d 64 backward (preprocess, fused kernel, convert) on the plain
     # forward's O and lse, so both sides read the same inputs; run twice
@@ -4217,20 +4309,21 @@ def chat_kernel_b2(n_tiles, card):
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
-    ms = graph_time_ms(raw_fwd(q, k, v, causal=False))
+    ms = graph_time_ms(raw_fwd_dense(q, k, v))
     plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, None, None, False, d ** -0.5))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    bound_ms, bound_by = vit_attention_bound_ms(n_tiles, s, h, d)
+    bound_ms, bound_by, floor, timing = dense_timing(ms, lib_ms, n_tiles, s, h, d)
+    q_rows = fa.DENSE_Q_ROWS
     print(f"[chat] flash_fwd_dense at the image tiles ({n_tiles}, {s}, {h}, {d}) "
-          f"({-(-s // 128)} tiles of 128 rows, the last of {s - 128 * (s // 128)}): max|d|="
-          f"{err:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) kernel {ms:.4f} ms (raw entry point, "
-          f"CUDA graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
-          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+          f"({-(-s // q_rows)} q tiles of {q_rows} rows, the last of {s - q_rows * (s // q_rows)}; "
+          f"{-(-s // fa.DENSE_KV_TILE)} kv tiles of {fa.DENSE_KV_TILE}): max|d|={err:.3e} (tol "
+          f"{ATTN_ATOL} + {ATTN_RTOL}|plain|) {timing}; plain {plain_ms:.4f} ms [{card}]",
+          flush=True)
     if excess > ATTN_ATOL:
         fail(f"chat B2: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| ({err:.3e})")
     return dict(shape=[n_tiles, s, h, h, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor, max_abs_err=err)
 
 
 def main():
@@ -4299,11 +4392,11 @@ def main():
                         "parity_script_launches": parity["script"][name],
                         "parity_train_shapes_max_abs_err": parity["train_errs"][name]})
         kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], parity["train_errs"][name])
-    kernels.append({"name": "flash_fwd_dense", "route": "cuda", "source": src + "flash_fwd.cu",
-                    "replaces": ref + "42", "launches": extract_st["launches"], **vit_record,
-                    "chat": chat_b2})
+    kernels.append({"name": "flash_fwd_dense", "route": "cuda",
+                    "source": src + "flash_fwd_dense.cu", "replaces": ref + "42",
+                    "launches": extract_st["launches"], **vit_record, "chat": chat_b2})
     tower_launches = vit_grad["tower"]["launches"]
-    for name, source, line in (("flash_fwd_dense_lse", "flash_fwd.cu", "121"),
+    for name, source, line in (("flash_fwd_dense_lse", "flash_fwd_dense.cu", "121"),
                                ("flash_bwd_dense", "flash_bwd_dense.cu", "195,252")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": ref + line, "launches": tower_launches[name],

@@ -1,9 +1,14 @@
-"""The arithmetic of flash_fwd.cu's Hopper design, tile by tile on the CPU,
-against the plain versions it is held to on the card.
+"""The arithmetic of the forward and backward Hopper kernels, tile by tile
+on the CPU, against the plain versions they are held to on the card.
 
-`scheduled_forward` below is a model of the kernel, not a part of the port:
-128-row q tiles (two warpgroups of 64 rows, whose rows are independent) and
-128-row KV tiles, zero-filled beyond S as TMA returns them; KV tiles wholly
+`scheduled_forward` below is a model of flash_fwd.cu and flash_fwd_dense.cu,
+not a part of the port. flash_fwd.cu (d = 128): 128-row q tiles (two
+warpgroups of 64 rows, whose rows are independent) and 128-row KV tiles.
+flash_fwd_dense.cu (B2, B2-lse: d = 64, dense, non-causal): 192-row q
+tiles (three warpgroups) and 112-row KV tiles (tfa.DENSE_Q_ROWS,
+tfa.DENSE_KV_TILE), each tile's P V added one tile late, as the kernel
+issues it beside the next tile's QK^T: O = (O + P_(j-1) V_(j-1)) alpha_j.
+Both: KV tiles zero-filled beyond S as TMA returns them; KV tiles wholly
 above the causal diagonal skipped; the diagonal tile, the ragged last tile
 and (with a key mask) every tile masked by position and key bits with the
 kernel's masked logit, the power of two nearest -1e30 in the scaled-logit
@@ -13,7 +18,8 @@ in (the exact product, then one rounding: modelled in fp64); P rounded to
 bf16 per tile before P.V, l summed from the fp32 P; O / max(l, 1e-30) times
 the query mask; lse = m * scale + log(max(l, 1e-30)).
 
-It runs at the main paths' masks and shapes, held to
+It runs at the main paths' masks and shapes (B2 also at a ragged S whose
+last q and KV tiles are both partial), held to
 `reference_attention` and `reference_attention_lse` with chip_smoke.py's own
 tolerances (output |d| <= ATTN_ATOL + ATTN_RTOL |plain|; lse |d| <= LSE_TOL on
 rows with query mask 1), so a tiling or rounding choice that would break
@@ -75,36 +81,40 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scale=None):
-    """flash_fwd.cu's forward, modelled tile by tile: (out bf16, lse fp32)."""
+def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scale=None,
+                      bq=BQ, bk=BK, deferred_pv=False):
+    """The forward kernels, modelled tile by tile: (out bf16, lse fp32).
+    bq, bk: q and KV rows a tile; deferred_pv: each tile's P V added after
+    the next tile's rescale, as flash_fwd_dense.cu orders it."""
     b, s, hq, d = q.shape
     grp = hq // k.shape[2]
     scale = _f32(d ** -0.5 if scale is None else scale)
     c = _f32(scale * _f32(LOG2E))                       # scale_log2, one fp32 product
     neg = -math.ldexp(1.0, round(math.log2(_f32(1e30 / scale))))
-    n_kv = -(-s // BK)
-    pad = n_kv * BK - s
+    n_kv = -(-s // bk)
+    pad = n_kv * bk - s
     kp = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))   # TMA's zero fill
     vp = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
     kp = kp.repeat_interleave(grp, dim=2).permute(0, 2, 1, 3)      # (B, Hq, S', d)
     vp = vp.repeat_interleave(grp, dim=2).permute(0, 2, 1, 3)
     qf = q.float().permute(0, 2, 1, 3)                              # (B, Hq, S, d)
-    kbits = torch.ones((b, n_kv * BK), dtype=torch.bool)
+    kbits = torch.ones((b, n_kv * bk), dtype=torch.bool)
     kbits[:, s:] = False
     if key_mask is not None:
         kbits[:, :s] &= key_mask.bool()
     out = torch.zeros((b, hq, s, d))
     lse = torch.zeros((b, hq, s))
-    for qt in range(-(-s // BQ)):
-        rows = torch.arange(qt * BQ, min(s, (qt + 1) * BQ))
+    for qt in range(-(-s // bq)):
+        rows = torch.arange(qt * bq, min(s, (qt + 1) * bq))
         m = torch.full((b, hq, len(rows)), neg)
         l = torch.zeros((b, hq, len(rows)))
         o = torch.zeros((b, hq, len(rows), d))
+        pv = torch.zeros_like(o)                                # the tile's P V not added yet
         for kt in range(min(qt + 1, n_kv) if causal else n_kv):
-            cols = torch.arange(kt * BK, (kt + 1) * BK)
+            cols = torch.arange(kt * bk, (kt + 1) * bk)
             sc = qf[:, :, rows] @ kp[:, :, cols].transpose(-1, -2)   # unscaled fp32 scores
             diag = causal and kt == qt
-            if key_mask is not None or diag or (kt + 1) * BK > s:
+            if key_mask is not None or diag or (kt + 1) * bk > s:
                 vis = kbits[:, None, None, cols]
                 if diag:
                     vis = vis & (cols[None, :] <= rows[:, None])[None, None]
@@ -114,8 +124,13 @@ def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scal
             mb = (mx * c).float()                               # rounded to fp32
             p = torch.exp2(sc.double() * c - mb.double()[..., None]).float()
             l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + p.to(torch.bfloat16).float() @ vp[:, :, cols]
+            if deferred_pv:
+                o = (o + pv) * alpha[..., None]
+                pv = p.to(torch.bfloat16).float() @ vp[:, :, cols]
+            else:
+                o = o * alpha[..., None] + p.to(torch.bfloat16).float() @ vp[:, :, cols]
             m = mx
+        o = o + pv
         keep = torch.ones((b, 1, len(rows), 1)) if query_mask is None else \
             query_mask[:, rows].float()[:, None, :, None]
         lc = l.clamp_min(1e-30)
@@ -277,7 +292,8 @@ def _holes_mask(rng, b, s):
 
 
 # name -> (B, S, Hq, Hkv, d, causal, mask maker): the main paths' shapes with
-# fewer heads (the GQA group of 4 kept); B2 at one clip and one head
+# fewer heads (the GQA group of 4 kept); B2 (flash_fwd_dense.cu, its tiles) at
+# one clip and one head, at the image tiles' S = 784 and at a ragged S
 CASES = {
     "B1 S=341 right pads": (4, 341, 8, 2, 128, True, lambda rng: _vtg_mask(341)),
     "B1 S=341 CPN holes": (4, 341, 8, 2, 128, True, lambda rng: _holes_mask(rng, 4, 341)),
@@ -286,7 +302,16 @@ CASES = {
     "B1-lse VTG S=448 right pads": (4, 448, 8, 2, 128, True, lambda rng: _vtg_mask(448)),
     "B1-lse TVG S=256 left pads": (4, 256, 8, 2, 128, True, lambda rng: _tvg_mask(256)),
     "B2 S=3136 dense d=64": (1, 3136, 1, 1, 64, False, lambda rng: None),
+    "B2 dense d=64 S=784 image tiles": (2, 784, 1, 1, 64, False, lambda rng: None),
+    "B2 dense d=64 S=1000 ragged": (1, 1000, 2, 2, 64, False, lambda rng: None),
 }
+
+
+def _forward_tiles(d):
+    """The model's tiling of the forward kernel that takes head dim d."""
+    if d == tfa.DENSE_HEAD_DIM:
+        return dict(bq=tfa.DENSE_Q_ROWS, bk=tfa.DENSE_KV_TILE, deferred_pv=True)
+    return dict(bq=BQ, bk=BK)
 
 
 def _inputs(case):
@@ -300,7 +325,7 @@ def _inputs(case):
 def test_schedule_matches_plain_versions(case):
     q, k, v, mask, causal = _inputs(case)
     scale = q.shape[-1] ** -0.5
-    out, lse = scheduled_forward(q, k, v, mask, mask, causal, scale)
+    out, lse = scheduled_forward(q, k, v, mask, mask, causal, scale, **_forward_tiles(q.shape[-1]))
     ref, ref_lse = tfa.reference_attention_lse(q, k, v, mask, mask, causal, scale)
     assert torch.equal(ref, reference_attention(q, k, v, mask, mask, causal, scale))
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
@@ -471,6 +496,36 @@ def test_dense_bounds_at_the_vit_shape():
     # causal without masks counts the triangle, as the forward's bound does
     causal = chip_smoke.backward_traffic(1, s, h, h, d, None, None)
     assert causal["flash_dq"][1] == 6.0 * d * h * (s * (s + 1) // 2)
+
+
+def test_dense_forward_tiles_are_the_kernels():
+    """The model's B2 tiles are flash_fwd_dense.cu's: kBK kv rows a tile and
+    kConsumers warpgroups of 64 q rows a CTA; 112 divides the ViT's S and the
+    image tiles' S, so neither runs a masked kv tile."""
+    src = tfa.SOURCES["flash_fwd_dense"].read_text()
+    assert f"constexpr int kBK = {tfa.DENSE_KV_TILE};" in src
+    assert f"constexpr int kConsumers = {tfa.DENSE_Q_ROWS // 64};" in src
+    assert 3136 % tfa.DENSE_KV_TILE == 0 and 784 % tfa.DENSE_KV_TILE == 0
+
+
+def test_exponential_floor_equals_the_bound_at_d64():
+    """B2 at 8 clips of (3136, 16, 64): one exponential a pair, 1.259e9, at
+    16 a clock an SM on 132 SMs at the 1.829 GHz that 989 TFLOP/s implies
+    (4096 flops a clock an SM) take 0.3258 ms, the same as the tensor-core
+    bound of its 4 d = 256 flops a pair; at d 128 a pair's flops double and
+    the floor is half the bound."""
+    clips, s, h, d = 8, 3136, 16, 64
+    n_exp = clips * h * s * s
+    assert n_exp == pytest.approx(1.259e9, rel=1e-3)
+    clock = chip_smoke.PEAK_BF16_FLOPS / (chip_smoke.SMS * chip_smoke.TENSOR_FLOPS_PER_CLOCK)
+    assert clock == pytest.approx(1.829e9, rel=1e-3)
+    floor = chip_smoke.exp_floor_ms(n_exp)
+    assert floor == pytest.approx(n_exp / (16 * 132 * clock) * 1e3)
+    assert floor == pytest.approx(0.3258, abs=1e-4)
+    bound, by = chip_smoke.vit_attention_bound_ms(clips, s, h, d)
+    assert by == "operations" and floor == pytest.approx(bound, rel=1e-12)
+    bound128, _ = chip_smoke.vit_attention_bound_ms(clips, s, h, 128)
+    assert floor == pytest.approx(bound128 / 2, rel=1e-12)
 
 
 def test_fused_dense_backward_bound_at_the_vit_shape():
