@@ -6,8 +6,9 @@
 Phases, one line each (all numbers beside the card's name and power limit):
   1. build    compile every hand-written kernel from the checkout's sources
               (nvcc, sm_90a, one process per source, all at once) and print
-              each kernel's registers, spills and shared memory; a spill or
-              a ptxas warning that it serialized a kernel's wgmma fails;
+              each kernel's registers, spills and shared memory (B1's on one
+              line of their own); a spill or a ptxas warning that it
+              serialized a kernel's wgmma fails;
   2. kernels  hold B1 (flash_fwd, inference) to its plain PyTorch version
               at the zero-shot path's shapes, and time kernel, plain
               version, one PyTorch library call of the same function
@@ -119,7 +120,8 @@ Phases, one line each (all numbers beside the card's name and power limit):
               grid plus the base view, the tower through B2 against the
               plain tower); then B1 at the chat's prefill shape and B2 at
               the tiles' shape against their plain versions, timed like
-              phases 2 and 9.
+              phases 2 and 9, and B1, untimed, at RAGGED_PREFILL_S under a
+              mask with runs of zeros inside a few interior kv tiles.
  13. dp       data parallel over processes (torch.multiprocessing spawn, each
               group joined within DP_TIMEOUT_S and killed on expiry; a rank's
               failure fails the script): 13a, DP_WORLD gloo ranks sharing
@@ -334,6 +336,10 @@ CHAT_FPS = 1.0       # the synthetic video: CHAT_FRAMES + 2 frames at 1 fps, so 
 CHAT_HW = (240, 320) # sampling reaches the cap; MSRVTT-like frames
 CHAT_NEW_TOKENS = 64 # greedy tokens of the chat and of the generate check
 CHAT_PROMPT = "Describe what happens in the video, step by step."
+RAGGED_PREFILL_S = 5001   # phase 12's untimed long B1 check: 40 q and kv tiles of 128, the
+                          # last of 9 rows (its second consumer has no row below S)
+RAGGED_PREFILL_HOLES = ((1000, 1007), (2600, 2660), (4100, 4101))   # its masked keys, inside
+                          # kv tiles 7, 20 and 32
 DECODE_TOL = 0.1     # max |cached decode - teacher-forced full forward| over the 64 steps'
                      # logits, relative to max |full forward logits|: both sides are bf16
                      # through 28 layers, the decode's single-token products and the
@@ -533,6 +539,15 @@ def sdpa_backward_ms(sdpa, inputs, dout, **timing):
                          stream=side, **timing)
 
 
+def fwd_timing(ms, lib_ms, bound_ms, bound_by):
+    """What a B1 or B1-lse line prints beside its check: the kernel's time,
+    SDPA's in the same run, the bound and the share of the bound reached."""
+    versus = "sdpa n/a" if lib_ms is None else \
+        f"sdpa {lib_ms:.4f} ms (CUDA graph; the kernel at {lib_ms / ms:.2f}x its speed)"
+    return (f"kernel {ms:.4f} ms (raw entry point, CUDA graph), {versus}, bound {bound_ms:.4f} ms "
+            f"({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound")
+
+
 def pairs_visible(key_mask, query_mask):
     """Causal (query, key) pairs with both masks 1 and the key not after the query."""
     km = key_mask.bool().cpu().numpy()
@@ -613,9 +628,16 @@ def phase_build():
     if faults:
         fail("ptxas: " + "; ".join(faults))
     fwd, bwd = fa._library("flash_fwd"), fa._library("flash_bwd")
+    report = reports.get("flash_fwd") or (fa.library_path("flash_fwd").parent
+                                          / "build.log").read_text()
+    regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers", report)})
+    spills = sorted({int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)})
+    print(f"[build] flash_fwd.cu (B1, B1-lse; {report.count('Compiling entry')} instantiations): "
+          f"registers at entry {regs}, spill bytes {spills}, dynamic shared memory "
+          f"{fwd.blim_flash_fwd_smem_bytes(128)} B a CTA", flush=True)
     fwd_dense, bwd_dense = fa._library("flash_fwd_dense"), fa._library("flash_bwd_dense")
-    print(f"[build] dynamic shared memory per CTA: flash_fwd {fwd.blim_flash_fwd_smem_bytes(128)} B "
-          f"(d 128), flash_fwd_dense {fwd_dense.blim_flash_fwd_dense_smem_bytes()} B (d 64, "
+    print(f"[build] dynamic shared memory per CTA: "
+          f"flash_fwd_dense {fwd_dense.blim_flash_fwd_dense_smem_bytes()} B (d 64, "
           f"B2 and B2-lse), flash_dq {bwd.blim_flash_bwd_smem_bytes(0, 128)} B, "
           f"flash_dkv {bwd.blim_flash_bwd_smem_bytes(1, 128)} B (d 128), flash_bwd_dense "
           f"{bwd_dense.blim_flash_bwd_dense_smem_bytes()} B (d 64)", flush=True)
@@ -697,10 +719,8 @@ def phase_kernels(card):
         bound_ms, bound_by = attention_bound_ms(b, s, hq, hkv, d, mask, mask)
         print(f"[kernels] flash_fwd {name}: max|d|={err:.3e} "
               f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) "
-              f"kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms (CUDA graph)'}, bound {bound_ms:.4f} ms "
-              f"({bound_by}) [{card}]", flush=True)
+              f"{fwd_timing(ms, lib_ms, bound_ms, bound_by)}; wrapper {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms [{card}]", flush=True)
         if excess > ATTN_ATOL:
             fail(f"kernel case {name}: |kernel - plain| exceeds {ATTN_ATOL} + "
                  f"{ATTN_RTOL}|plain| (max |d| {err:.3e})")
@@ -772,9 +792,9 @@ def phase_train_kernels(card):
         bound_ms, bound_by = roofline_ms(io + 4 * b * hq * s, 4.0 * d * hq * pairs)
         print(f"[train-kernels] flash_fwd_lse {name}: max|d| out {err_o:.3e} "
               f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), lse {err_lse:.3e} on query-mask-1 rows "
-              f"(tol {LSE_TOL}); kernel {ms:.4f} ms (raw entry point, CUDA graph), wrapper "
-              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa fwd {lib_ms:.4f} ms (CUDA graph), "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+              f"(tol {LSE_TOL}); {fwd_timing(ms, lib_ms, bound_ms, bound_by)} (sdpa: its forward "
+              f"with grad); wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+              flush=True)
         if excess > ATTN_ATOL or err_lse > LSE_TOL:
             fail(f"flash_fwd_lse {name}: kernel and plain disagree")
         rec = records.setdefault("flash_fwd_lse", dict(max_abs_err=0.0))
@@ -1528,9 +1548,8 @@ def rect_kernel_b1(shape, masks, card):
     print(f"[rectangle] flash_fwd at a TVG rectangle shape (G={g}, B={s}, {hq}, "
           f"{d}), left-padded (fewest real rows {rows[0]}) and CPN-masked (fewest visible "
           f"{rows[-1]}): max|d| {', '.join(f'{e:.3e}' for e in errs)} (tol {ATTN_ATOL} + "
-          f"{ATTN_RTOL}|plain|), masked rows zero; kernel {ms:.4f} ms (raw entry point, CUDA "
-          f"graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
-          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+          f"{ATTN_RTOL}|plain|), masked rows zero; {fwd_timing(ms, lib_ms, bound_ms, bound_by)}; "
+          f"plain {plain_ms:.4f} ms [{card}]", flush=True)
     return dict(shape=[g, s, hq, hkv, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max(errs))
 
@@ -4238,7 +4257,10 @@ def phase_chat(card):
 
 def chat_kernel_b1(s, card):
     """B1 against its plain version at the chat's prefill shape (B = 1, S,
-    causal, all-ones mask), timed like phase 2."""
+    causal, all-ones mask), timed like phase 2; then, untimed, at
+    RAGGED_PREFILL_S (ragged at a q and a kv tile) under a mask whose runs
+    of zeros (RAGGED_PREFILL_HOLES) leave a few interior tiles partly masked
+    and their rows zero."""
     import torch
     import torch.nn.functional as F
 
@@ -4247,22 +4269,32 @@ def chat_kernel_b1(s, card):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     hq, hkv, d = 28, 4, 128
-    q = torch.randn((1, s, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn((1, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-    v = torch.randn((1, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def held(seq, mask, what):
+        q = torch.randn((1, seq, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((1, seq, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((1, seq, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        before = fa.counts()
+        out = fa.flash_attention(q, k, v, key_mask=mask, query_mask=mask)
+        torch.cuda.synchronize()
+        if fa.counts() != dict(before, flash_fwd=before["flash_fwd"] + 1):
+            fail(f"chat B1 {what}: the wrapper did not launch the kernel once")
+        if not torch.isfinite(out).all():
+            fail(f"chat B1 {what}: non-finite output")
+        if (out[mask == 0] != 0).any():
+            fail(f"chat B1 {what}: a masked row is not zero")
+        ref = reference_attention(q, k, v, mask, mask, True, d ** -0.5)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+        del ref, diff, out
+        if excess > ATTN_ATOL:
+            fail(f"chat B1 {what}: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| "
+                 f"({err:.3e})")
+        return q, k, v, err
+
     mask = torch.ones((1, s), dtype=torch.int32, device="cuda")
-    before = fa.counts()
-    out = fa.flash_attention(q, k, v, key_mask=mask, query_mask=mask)
-    torch.cuda.synchronize()
-    if fa.counts() != dict(before, flash_fwd=before["flash_fwd"] + 1):
-        fail("chat B1: the wrapper did not launch the kernel once")
-    ref = reference_attention(q, k, v, mask, mask, True, d ** -0.5)
-    if not torch.isfinite(out).all():
-        fail("chat B1: non-finite output")
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
-    excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
-    del ref, diff
+    q, k, v, err = held(s, mask, "at the prefill")
     ms = graph_time_ms(raw_fwd(q, k, v, mask), iters=10, replays=2)
     plain_ms = gpu_time_ms(lambda: reference_attention(q, k, v, mask, mask, True, d ** -0.5),
                            iters=2, warmup=1)
@@ -4270,16 +4302,26 @@ def chat_kernel_b1(s, card):
     lib_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=2)
     bound_ms, bound_by = attention_bound_ms(1, s, hq, hkv, d, mask, mask)
+    floor = exp_floor_ms(hq * pairs_visible(mask, mask))
     print(f"[chat] flash_fwd at the chat's prefill (1, {s}, {hq}, {d}), causal, all-ones mask "
           f"({-(-s // 128)} q tiles, the last of {s - 128 * (s // 128)} rows): max|d|={err:.3e} "
-          f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) kernel {ms:.4f} ms (raw entry point, CUDA "
-          f"graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA graph), bound "
-          f"{bound_ms:.4f} ms ({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of the bound "
+          f"(tol {ATTN_ATOL} + {ATTN_RTOL}|plain|) {fwd_timing(ms, lib_ms, bound_ms, bound_by)}, "
+          f"exponential floor {floor:.4f} ms; plain {plain_ms:.4f} ms [{card}]", flush=True)
+    del q, k, v, qt, kt, vt
+
+    ragged = torch.ones((1, RAGGED_PREFILL_S), dtype=torch.int32, device="cuda")
+    for lo, hi in RAGGED_PREFILL_HOLES:
+        ragged[:, lo:hi] = 0
+    *_, err_ragged = held(RAGGED_PREFILL_S, ragged, f"at S={RAGGED_PREFILL_S}")
+    tiles = sorted({lo // 128 for lo, _ in RAGGED_PREFILL_HOLES})
+    print(f"[chat] flash_fwd at (1, {RAGGED_PREFILL_S}, {hq}, {d}), causal, keys "
+          f"{', '.join(f'{lo}-{hi - 1}' for lo, hi in RAGGED_PREFILL_HOLES)} masked (kv tiles "
+          f"{tiles} partly), the last q and kv tile of {RAGGED_PREFILL_S % 128} rows: "
+          f"max|d|={err_ragged:.3e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), masked rows zero "
           f"[{card}]", flush=True)
-    if excess > ATTN_ATOL:
-        fail(f"chat B1: |kernel - plain| exceeds {ATTN_ATOL} + {ATTN_RTOL}|plain| ({err:.3e})")
     return dict(shape=[1, s, hq, hkv, d], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor,
+                max_abs_err=max(err, err_ragged))
 
 
 def chat_kernel_b2(n_tiles, card):

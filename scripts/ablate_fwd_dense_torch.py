@@ -6,13 +6,12 @@ built and with one part of its design or its work taken out at a time.
     python scripts/ablate_fwd_dense_torch.py [--clips 8] [--seq 3136] [--rounds 2]
 
 Each variant is the kernel's source with the edits listed in VARIANTS
-(each edit names how many times its text occurs in the source), built with
-the port's nvcc flags into blim_tpu_torch/_build/ (one nvcc per variant, all
-at once; each variant's ptxas spills and any wgmma serialization are
-printed), and timed through its C entry point, replayed from a CUDA graph,
-at CLIPS clips of (SEQ, 16, 64) with q, k, v strided views of one packed qkv
-(the tower's shape).
-Only the kernel as built is held to the plain version (out within
+(each edit names how many times its text occurs in the source), built by
+scripts/ablation_torch.py (one nvcc per variant, all at once; each variant's
+ptxas spills and any wgmma serialization are printed), and timed through
+its C entry point, replayed from a CUDA graph, at CLIPS clips of (SEQ, 16,
+64) with q, k, v strided views of one packed qkv (the tower's shape). Only
+the kernel as built is held to the plain version (out within
 chip_smoke.ATTN_ATOL + ATTN_RTOL |plain|); the other variants are timing
 probes whose results may be wrong by design. The variants run in turns,
 `rounds` times, all in one process on one card; the card's name and power
@@ -22,14 +21,8 @@ limit head the output. Needs one CUDA GPU.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import re
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import ablation_torch as ab
 
 # name -> [(text in the kernel's source, its replacement, times it occurs)]
 VARIANTS = {
@@ -61,19 +54,6 @@ VARIANTS = {
 }
 
 
-def variant_source(text: str, edits) -> str:
-    for old, new, times in edits:
-        if text.count(old) != times:
-            raise SystemExit(f"the kernel's source holds this text {text.count(old)} times, "
-                             f"not {times}: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def slug(name: str) -> str:
-    return "ablate_" + re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--clips", type=int, default=8)
@@ -88,27 +68,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    source = fa.SOURCES["flash_fwd_dense"]
-    text = source.read_text()
-    for name, edits in VARIANTS.items():
-        folder = fa.BUILD_ROOT / "ablate_fwd" / slug(name)
-        folder.mkdir(parents=True, exist_ok=True)
-        for header in source.parent.glob("*.cuh"):
-            (folder / header.name).write_text(header.read_text())
-        (folder / source.name).write_text(variant_source(text, edits))
-        fa.SOURCES[slug(name)] = folder / source.name
-    reports = fa.build(tuple(slug(name) for name in VARIANTS))    # one nvcc each, all at once
-    libs = {}
-    for name in VARIANTS:
-        report = reports[slug(name)]
-        spills = sorted({int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)})
-        serialized = [ln.strip() for ln in report.splitlines() if "serializ" in ln]
-        print(f"[build] {name}: spill bytes {spills or 'not rebuilt'}"
-              + (f"; wgmma serialized: {serialized[0][:160]}" if serialized else ""), flush=True)
-        libs[name] = fa.bind(ctypes.CDLL(str(fa.library_path(slug(name)))), "flash_fwd_dense")
+    card = ab.card()
+    libs = ab.build_variants("flash_fwd_dense", VARIANTS)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     s, h, d = args.seq, 16, 64
@@ -134,14 +95,9 @@ def main() -> None:
                                      f"{excess:.3e} over {cs.ATTN_RTOL}|plain|)")
                 del want
             times[name].append(cs.graph_time_ms(run, iters=10, replays=2))
-    base = min(times["as built"])
-    print(f"flash_fwd_dense (B2) at {args.clips} clips of ({s}, {h}, {d}), raw entry point in "
-          f"a CUDA graph, bound {bound:.4f} ms "
-          f"({bound_by}), exponential floor {floor:.4f} ms [{card}]")
-    for name, ts in times.items():
-        best = min(ts)
-        print(f"  {name:44s} {', '.join(f'{t:.4f}' for t in ts)} ms; best {best:.4f} "
-              f"({100 * (best - base) / base:+.1f}% against as built)")
+    ab.print_times(f"flash_fwd_dense (B2) at {args.clips} clips of ({s}, {h}, {d}), raw entry "
+                   f"point in a CUDA graph, bound {bound:.4f} ms ({bound_by}), exponential floor "
+                   f"{floor:.4f} ms [{card}]", times)
 
 
 if __name__ == "__main__":

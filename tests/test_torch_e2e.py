@@ -144,7 +144,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_flow.py",
         REPO / "scripts" / "parity_torch.py", REPO / "scripts" / "analyze_schedule_torch.py",
         REPO / "scripts" / "ablate_bwd_dense_torch.py",
-        REPO / "scripts" / "ablate_fwd_dense_torch.py"]
+        REPO / "scripts" / "ablate_fwd_dense_torch.py", REPO / "scripts" / "ablate_fwd_torch.py",
+        REPO / "scripts" / "ablation_torch.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("adapters/lora", "checkpoints/convert", "checkpoints/safetensors_io",

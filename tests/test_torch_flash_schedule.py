@@ -3,14 +3,16 @@ on the CPU, against the plain versions they are held to on the card.
 
 `scheduled_forward` below is a model of flash_fwd.cu and flash_fwd_dense.cu,
 not a part of the port. flash_fwd.cu (d = 128): 128-row q tiles (two
-warpgroups of 64 rows, whose rows are independent) and 128-row KV tiles.
-flash_fwd_dense.cu (B2, B2-lse: d = 64, dense, non-causal): 192-row q
-tiles (three warpgroups) and 112-row KV tiles (tfa.DENSE_Q_ROWS,
-tfa.DENSE_KV_TILE), each tile's P V added one tile late, as the kernel
-issues it beside the next tile's QK^T: O = (O + P_(j-1) V_(j-1)) alpha_j.
-Both: KV tiles zero-filled beyond S as TMA returns them; KV tiles wholly
-above the causal diagonal skipped; the diagonal tile, the ragged last tile
-and (with a key mask) every tile masked by position and key bits with the
+warpgroups of 64 rows, whose rows are independent) and 128-row KV tiles;
+its P V is issued one tile late but after O's rescale, so O = O alpha_j +
+P_j V_j tile by tile, as in one pass. flash_fwd_dense.cu (B2, B2-lse: d =
+64, dense, non-causal): 192-row q tiles (three warpgroups) and 112-row KV
+tiles (tfa.DENSE_Q_ROWS, tfa.DENSE_KV_TILE), each tile's P V added one tile
+late, as the kernel issues it beside the next tile's QK^T: O = (O +
+P_(j-1) V_(j-1)) alpha_j. Both: KV tiles in order, zero-filled beyond S as
+TMA returns them; KV tiles wholly above the causal diagonal skipped; a tile
+masked, by position and key bits, only when it is the causal diagonal, the
+ragged last tile, or one of its key bits is 0 (per batch row), with the
 kernel's masked logit, the power of two nearest -1e30 in the scaled-logit
 domain, in unscaled units; the running max kept in unscaled scores; the
 exponentials as exp2 of one fused multiply-add with scale * log2(e) folded
@@ -50,6 +52,7 @@ held to `reference_attention_backward` at GRAD_TOL at one clip of S = 3136
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -82,10 +85,11 @@ def _f32(x: float) -> float:
 
 
 def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scale=None,
-                      bq=BQ, bk=BK, deferred_pv=False):
+                      bq=BQ, bk=BK, deferred_pv=False, unmasked_tile=None):
     """The forward kernels, modelled tile by tile: (out bf16, lse fp32).
     bq, bk: q and KV rows a tile; deferred_pv: each tile's P V added after
-    the next tile's rescale, as flash_fwd_dense.cu orders it."""
+    the next tile's rescale, as flash_fwd_dense.cu orders it; unmasked_tile:
+    a KV tile index left unmasked whatever its key bits (a planted fault)."""
     b, s, hq, d = q.shape
     grp = hq // k.shape[2]
     scale = _f32(d ** -0.5 if scale is None else scale)
@@ -114,11 +118,15 @@ def scheduled_forward(q, k, v, key_mask=None, query_mask=None, causal=True, scal
             cols = torch.arange(kt * bk, (kt + 1) * bk)
             sc = qf[:, :, rows] @ kp[:, :, cols].transpose(-1, -2)   # unscaled fp32 scores
             diag = causal and kt == qt
-            if key_mask is not None or diag or (kt + 1) * bk > s:
-                vis = kbits[:, None, None, cols]
-                if diag:
-                    vis = vis & (cols[None, :] <= rows[:, None])[None, None]
-                sc = sc.masked_fill(~vis, neg)
+            # the rule: the diagonal, the ragged last tile (its bits beyond S
+            # are 0) and a tile with a 0 key bit are masked, per batch row
+            masked = ~kbits[:, cols].all(-1) | diag
+            if kt == unmasked_tile:
+                masked[:] = False
+            vis = kbits[:, None, None, cols]
+            if diag:
+                vis = vis & (cols[None, :] <= rows[:, None])[None, None]
+            sc = torch.where(masked[:, None, None, None], sc.masked_fill(~vis, neg), sc)
             mx = torch.maximum(m, sc.amax(-1))
             alpha = torch.exp2((m - mx) * c)
             mb = (mx * c).float()                               # rounded to fp32
@@ -282,6 +290,15 @@ def _tvg_mask(s):
     return m
 
 
+def _run_mask(s, lo, hi):
+    """All ones but keys lo .. hi - 1: with 128-row tiles, a run inside one
+    interior tile (the rows there are query-masked too, as the paths pass
+    one mask as both)."""
+    m = torch.ones((1, s), dtype=torch.int32)
+    m[:, lo:hi] = 0
+    return m
+
+
 def _holes_mask(rng, b, s):
     m = np.ones((b, s), np.int32)
     m[:, s - 9:] = 0
@@ -292,7 +309,9 @@ def _holes_mask(rng, b, s):
 
 
 # name -> (B, S, Hq, Hkv, d, causal, mask maker): the main paths' shapes with
-# fewer heads (the GQA group of 4 kept); B2 (flash_fwd_dense.cu, its tiles) at
+# fewer heads (the GQA group of 4 kept); a long causal S of 9 q and kv tiles,
+# ragged at the end (the chat's prefill cut down), all-ones or with a run of
+# masked keys inside one interior tile; B2 (flash_fwd_dense.cu, its tiles) at
 # one clip and one head, at the image tiles' S = 784 and at a ragged S
 CASES = {
     "B1 S=341 right pads": (4, 341, 8, 2, 128, True, lambda rng: _vtg_mask(341)),
@@ -304,6 +323,10 @@ CASES = {
     "B2 S=3136 dense d=64": (1, 3136, 1, 1, 64, False, lambda rng: None),
     "B2 dense d=64 S=784 image tiles": (2, 784, 1, 1, 64, False, lambda rng: None),
     "B2 dense d=64 S=1000 ragged": (1, 1000, 2, 2, 64, False, lambda rng: None),
+    "long B1 S=1100 all-ones": (1, 1100, 8, 2, 128, True,
+                                lambda rng: torch.ones((1, 1100), dtype=torch.int32)),
+    "long B1 S=1100 masked run in one tile": (1, 1100, 8, 2, 128, True,
+                                              lambda rng: _run_mask(1100, 300, 341)),
 }
 
 
@@ -334,6 +357,67 @@ def test_schedule_matches_plain_versions(case):
     rows = torch.ones(lse.shape, dtype=torch.bool) if mask is None else \
         mask.bool()[:, None, :].expand(lse.shape)
     assert (lse - ref_lse)[rows].abs().max().item() <= LSE_TOL, case
+
+
+def test_a_tile_with_a_masked_key_must_be_masked():
+    """flash_fwd.cu masks a loop tile only when one of its key bits is 0.
+    Planted: the interior tile that holds the run of masked keys (keys 300
+    .. 340 of tile 2) left unmasked; the rows after it then see those keys
+    and leave chip_smoke.py's tolerance, while the model under the rule
+    holds to it."""
+    q, k, v, mask, causal = _inputs("long B1 S=1100 masked run in one tile")
+    ref = reference_attention(q, k, v, mask, mask, causal)
+    excess = {}
+    for planted in (None, 2):
+        out, _ = scheduled_forward(q, k, v, mask, mask, causal, unmasked_tile=planted,
+                                   **_forward_tiles(128))
+        excess[planted] = ((out.float() - ref.float()).abs()
+                           - ATTN_RTOL * ref.float().abs()).max().item()
+    assert excess[None] <= ATTN_ATOL < excess[2], excess
+
+
+def test_forward_tiles_and_budgets_are_the_kernels():
+    """The model's d = 128 tiles are flash_fwd.cu's (kBQ q rows a CTA, two
+    consumer warpgroups of 64, kBK kv rows a tile); its rings of kStages K
+    and V buffers, the Q tile, the key bits and the mbarriers fit in the
+    227 KB a block may take; and setmaxnreg's split fits in the registers
+    that one CTA of 384 threads holds at entry (168 a thread), with each
+    consumer thread's S (64 fp32), P (32 bf16 pairs) and O (64 fp32) under
+    its share."""
+    src = tfa.SOURCES["flash_fwd"].read_text()
+    const = {name: int(value) for name, value in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kBQ"] == BQ and const["kBK"] == BK and const["kD"] == tfa.HEAD_DIM
+    assert const["kBQ"] == 64 * const["kConsumers"]
+    stages = const["kStages"]
+    assert stages >= 2
+    smem = (BQ + 2 * stages * BK) * tfa.HEAD_DIM * 2 + stages * BK // 8 + (1 + 4 * stages) * 8
+    assert smem + 1024 <= 232_448
+    threads = (const["kConsumers"] + 1) * 128
+    entry = 65536 // threads // 8 * 8
+    assert entry == 168
+    assert (const["kProducerRegs"] + const["kConsumers"] * const["kConsumerRegs"]) * 128 \
+        <= entry * threads
+    assert const["kConsumerRegs"] - (BK // 2 + BK // 4 + tfa.HEAD_DIM // 2) >= 64
+    assert 24 <= const["kProducerRegs"] <= const["kConsumerRegs"] <= 256
+    assert const["kProducerRegs"] % 8 == 0 and const["kConsumerRegs"] % 8 == 0
+
+
+def test_prefill_bound_and_exponential_floor():
+    """The chat's prefill, (1, 8381, 28 q heads on 4 KV heads, 128), causal
+    under an all-ones mask: 28 x 8381 x 8382 / 2 visible pairs at 4 d = 512
+    flops each, 503.5 GFLOP, 0.5091 ms at 989 TFLOP/s, bound by operations
+    (q, k, v, o and the mask are 60.5 MB, 0.018 ms); one exponential a pair
+    on the SFUs, 0.2546 ms, half the bound."""
+    s, hq, hkv, d = 8381, 28, 4, 128
+    mask = torch.ones((1, s), dtype=torch.int32)
+    ms, by = chip_smoke.attention_bound_ms(1, s, hq, hkv, d, mask, mask)
+    assert by == "operations" and ms == pytest.approx(0.5091, abs=1e-4)
+    pairs = s * (s + 1) // 2
+    assert chip_smoke.pairs_visible(mask, mask) == pairs
+    assert 4.0 * d * hq * pairs == pytest.approx(503.5e9, rel=1e-4)
+    floor = chip_smoke.exp_floor_ms(hq * pairs)
+    assert floor == pytest.approx(0.2546, abs=1e-4) and floor == pytest.approx(ms / 2, rel=1e-9)
 
 
 def test_fully_masked_rows_stay_finite_only_with_a_power_of_two_masked_logit():
