@@ -46,6 +46,14 @@ JAX package's formulas on its step geometry at one data shard. In a
 process group `flops` counts this rank's steps and `useful_flops` the
 whole request, as in the JAX package.
 
+Tracing (utils/profiling.span, off unless a tracer is active): each packed
+pass opens `rerank.vtg`, `rerank.vtg_prior` or `rerank.tvg`, inside it
+`rerank.pack` around the host pack assembly and, a step, `rerank.upload`
+(the step's arrays copied to the device), `rerank.dispatch` (its forwards
+enqueued) and `rerank.readback` (its scores copied back). `host_syncs`
+counts the transfers that block the host on the device's queue in every
+schedule; the rectangle and naive schedules open no spans.
+
 The numpy schedulers (`group_pairs`, `group_pairs_bucketed`,
 `group_pairs_by_video`, `build_packs`, `build_tvg_packs`, `batch_plan`,
 `unique_pairs`, `topk_pairs`, `default_pack_sizes`,
@@ -74,6 +82,7 @@ from blim_tpu_torch.models import projector as projector_lib
 from blim_tpu_torch.models import videochat_flash as vcf
 from blim_tpu_torch.utils import distributed as dist
 from blim_tpu_torch.utils import flops as flops_lib
+from blim_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -411,6 +420,12 @@ class RerankEngine:
         # naive full-sequence forwards (score_grid_*): 28 B1 launches each on CUDA
         self.naive_forwards = 0
         self.steps = 0
+        # transfers that block the host until the device's queue drains:
+        # every synchronous copy from pageable host memory to the device
+        # (`_tensor`, the feature bank) and every readback (`_readback`),
+        # counted where each is made (on the CPU, where none blocks, the
+        # count of the same path)
+        self.host_syncs = 0
         # analytic forward FLOPs (utils/flops.py): dispatched, and the
         # request's zero-waste oracle; useful / dispatched is the schedule's
         # packing efficiency
@@ -510,7 +525,12 @@ class RerankEngine:
     # -- banks -----------------------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        self.host_syncs += 1
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        self.host_syncs += 1
+        return t.float().cpu().numpy()
 
     def upload(self, bank: CaptionBank, features,
                shared_feats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -524,6 +544,7 @@ class RerankEngine:
         if shared_feats is not None:
             feats = shared_feats["feats"]
         else:
+            self.host_syncs += 1
             feats = torch.as_tensor(np.asarray(features, np.float32)).to(
                 device=self.device, dtype=self.dtype)
         out: Dict[str, Any] = {"feats": feats, "n_captions": int(bank.input_ids.shape[0])}
@@ -820,13 +841,17 @@ class RerankEngine:
     def _run_pack_batches(self, bulk, m: int, G: int, run_step: Callable):
         """Split m assembled pack rows (`bulk`, arrays with a leading m axis)
         into batch_plan batches (the tail padded by repeating pack 0, whose
-        duplicate scatter is idempotent) and call run_step(sl, tensors) per
-        batch. Yields (real pack indices, step output)."""
+        duplicate scatter is idempotent), copy each batch's rows to the
+        device and call run_step(sl, tensors) per batch. Yields (real pack
+        indices, step output)."""
         s = 0
         for g in batch_plan(m, G):
             n_real = min(g, m - s)
             sl = np.concatenate([np.arange(s, s + n_real), np.zeros(g - n_real, np.int64)])
-            out = run_step(sl, tuple(self._tensor(a[sl]) for a in bulk))
+            with span("rerank.upload"):
+                arrs = tuple(self._tensor(a[sl]) for a in bulk)
+            with span("rerank.dispatch"):
+                out = run_step(sl, arrs)
             self.steps += 1
             yield sl[:n_real], out
             s += n_real
@@ -852,67 +877,77 @@ class RerankEngine:
                                vid_idx: np.ndarray) -> np.ndarray:
         """Packed VTG scores P(caption | video) for a flat pair list -> (n,)
         in input order."""
-        self.useful_flops += self._useful_vtg(banks, cap_idx, vid_idx)
-        prefix_ids, prefix_mask = self._vtg_prefix_arrays()
-        P_len = int(prefix_ids.shape[0])
-        llm = self.config.llm
-        scores = np.zeros(len(cap_idx), np.float32)
-        pending = []
-        for size, packs in build_packs(vid_idx, cap_idx, banks["suffix_len_host"],
-                                       self.pack_sizes):
-            lo, hi = self._process_shard("vtg", size, len(packs))
-            packs = packs[lo:hi]
-            if not packs:
-                continue
-            vids = np.asarray([key for key, _, _ in packs], np.int64)
+        with span("rerank.vtg"):
+            self.useful_flops += self._useful_vtg(banks, cap_idx, vid_idx)
+            prefix_ids, prefix_mask = self._vtg_prefix_arrays()
+            P_len = int(prefix_ids.shape[0])
+            llm = self.config.llm
+            scores = np.zeros(len(cap_idx), np.float32)
+            pending = []
+            with span("rerank.pack"):
+                classes = build_packs(vid_idx, cap_idx, banks["suffix_len_host"],
+                                      self.pack_sizes)
+            for size, packs in classes:
+                lo, hi = self._process_shard("vtg", size, len(packs))
+                packs = packs[lo:hi]
+                if not packs:
+                    continue
 
-            def run_step(sl, arrs, size=size, vids=vids):
-                self.flops += flops_lib.prefix_forward_flops(llm, len(sl), P_len)
-                self.flops += flops_lib.packed_suffix_forward_flops(llm, len(sl), size, P_len)
-                return self._vtg_packed_step(banks["feats"], prefix_ids, prefix_mask,
-                                             self._tensor(vids[sl]), *arrs,
-                                             n_segments=size // 4)
+                def run_step(sl, arrs, size=size):
+                    self.flops += flops_lib.prefix_forward_flops(llm, len(sl), P_len)
+                    self.flops += flops_lib.packed_suffix_forward_flops(llm, len(sl), size,
+                                                                        P_len)
+                    return self._vtg_packed_step(banks["feats"], prefix_ids, prefix_mask, *arrs,
+                                                 n_segments=size // 4)
 
-            G = packs_per_step(P_len, size)
-            bulk = self._assemble_packs_bulk(banks, packs, size)
-            for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
-                pending.append(([packs[i][2] for i in sl_real], out))
-        for mapping, out in pending:
-            out = out.float().cpu().numpy()
-            for gi, pos_list in enumerate(mapping):
-                for si, pp in enumerate(pos_list):
-                    scores[pp] = out[gi, si]
-        return self._allreduce_scores(scores)
+                G = packs_per_step(P_len, size)
+                with span("rerank.pack"):
+                    vids = np.asarray([key for key, _, _ in packs], np.int64)
+                    bulk = (vids, *self._assemble_packs_bulk(banks, packs, size))
+                for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
+                    pending.append(([packs[i][2] for i in sl_real], out))
+            for mapping, out in pending:
+                with span("rerank.readback"):
+                    out = self._readback(out)
+                for gi, pos_list in enumerate(mapping):
+                    for si, pp in enumerate(pos_list):
+                        scores[pp] = out[gi, si]
+            return self._allreduce_scores(scores)
 
     @torch.no_grad()
     def compute_vtg_priors_packed(self, banks: Dict[str, Any]) -> np.ndarray:
         """CPN prior P(caption) for every caption in the bank -> (n_captions,)."""
-        self.useful_flops += self._useful_vtg_prior(banks)
-        prior_kv, prior_mask = self.compute_prior_kv(self.vtg_layout)
-        P_prior = int(prior_mask.shape[1])
-        self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
-        n_caps = banks["n_captions"]
-        prior = np.zeros(n_caps, np.float32)
-        pending = []
-        for size, packs in build_packs(np.zeros(n_caps, np.int64), np.arange(n_caps),
-                                       banks["suffix_len_host"], self.pack_sizes):
+        with span("rerank.vtg_prior"):
+            self.useful_flops += self._useful_vtg_prior(banks)
+            prior_kv, prior_mask = self.compute_prior_kv(self.vtg_layout)
+            P_prior = int(prior_mask.shape[1])
+            self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
+            n_caps = banks["n_captions"]
+            prior = np.zeros(n_caps, np.float32)
+            pending = []
+            with span("rerank.pack"):
+                classes = build_packs(np.zeros(n_caps, np.int64), np.arange(n_caps),
+                                      banks["suffix_len_host"], self.pack_sizes)
+            for size, packs in classes:
 
-            def run_step(sl, arrs, size=size):
-                self.flops += flops_lib.packed_suffix_forward_flops(
-                    self.config.llm, len(sl), size, P_prior)
-                return self._vtg_prior_packed_step(prior_kv, prior_mask, *arrs,
-                                                   n_segments=size // 4)
+                def run_step(sl, arrs, size=size):
+                    self.flops += flops_lib.packed_suffix_forward_flops(
+                        self.config.llm, len(sl), size, P_prior)
+                    return self._vtg_prior_packed_step(prior_kv, prior_mask, *arrs,
+                                                       n_segments=size // 4)
 
-            G = packs_per_step(P_prior, size)
-            bulk = self._assemble_packs_bulk(banks, packs, size)
-            for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
-                pending.append(([packs[i][1] for i in sl_real], out))
-        for mapping, out in pending:
-            out = out.float().cpu().numpy()
-            for gi, caps in enumerate(mapping):
-                for si, c in enumerate(caps):
-                    prior[c] = out[gi, si]
-        return prior
+                G = packs_per_step(P_prior, size)
+                with span("rerank.pack"):
+                    bulk = self._assemble_packs_bulk(banks, packs, size)
+                for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
+                    pending.append(([packs[i][1] for i in sl_real], out))
+            for mapping, out in pending:
+                with span("rerank.readback"):
+                    out = self._readback(out)
+                for gi, caps in enumerate(mapping):
+                    for si, c in enumerate(caps):
+                        prior[c] = out[gi, si]
+            return prior
 
     @torch.no_grad()
     def score_pairs_tvg_packed(self, banks: Dict[str, Any], video_vocab: torch.Tensor,
@@ -923,67 +958,75 @@ class RerankEngine:
         (n,) | None) in input order. The prior pass packs only each caption's
         instruction head (tvg_prefix_length tokens): the prior masks every
         other prefix key, so their K/V are never computed."""
-        self.useful_flops += self._useful_tvg(
-            banks, cap_idx, vid_idx, int(video_vocab.shape[0]), with_prior)
-        assert "tvg_embeds" in banks, "upload() computes tvg_embeds for TVG banks"
-        assert banks.get("lora_ref_host") is self.lora, (
-            "engine.lora changed since upload(): tvg_embeds is stale, re-upload")
-        llm = self.config.llm
-        V = int(video_vocab.shape[0])
-        W = self.config.num_clips
-        hl = self.tvg_layout.tvg_prefix_length
-        lens = banks["prefix_len_host"]
-        first_ids, tvg_embeds = banks["first_ids"], banks["tvg_embeds"]
-        pending = []
+        with span("rerank.tvg"):
+            self.useful_flops += self._useful_tvg(
+                banks, cap_idx, vid_idx, int(video_vocab.shape[0]), with_prior)
+            assert "tvg_embeds" in banks, "upload() computes tvg_embeds for TVG banks"
+            assert banks.get("lora_ref_host") is self.lora, (
+                "engine.lora changed since upload(): tvg_embeds is stale, re-upload")
+            llm = self.config.llm
+            V = int(video_vocab.shape[0])
+            W = self.config.num_clips
+            hl = self.tvg_layout.tvg_prefix_length
+            lens = banks["prefix_len_host"]
+            first_ids, tvg_embeds = banks["first_ids"], banks["tvg_embeds"]
+            pending = []
 
-        def run_pass(out_vec, p_cap, p_vid, seg_lens, head_len, cpn):
-            for size, qn, packs in build_tvg_packs(p_cap, p_vid, seg_lens, self.tvg_pack_classes,
-                                                   q_buckets=self._tvg_q_buckets):
-                lo, hi = self._process_shard("tvg_prior" if cpn else "tvg", (size, qn), len(packs))
-                packs = packs[lo:hi]
-                if not packs:
-                    continue
-                *bulk, pair_pos = self._assemble_tvg_packs_bulk(banks, packs, size, qn, head_len)
+            def run_pass(out_vec, p_cap, p_vid, seg_lens, head_len, cpn):
+                with span("rerank.pack"):
+                    classes = build_tvg_packs(p_cap, p_vid, seg_lens, self.tvg_pack_classes,
+                                              q_buckets=self._tvg_q_buckets)
+                for size, qn, packs in classes:
+                    lo, hi = self._process_shard("tvg_prior" if cpn else "tvg", (size, qn),
+                                                 len(packs))
+                    packs = packs[lo:hi]
+                    if not packs:
+                        continue
+                    with span("rerank.pack"):
+                        *bulk, pair_pos = self._assemble_tvg_packs_bulk(banks, packs, size, qn,
+                                                                        head_len)
 
-                def run_step(sl, arrs, size=size, qn=qn):
-                    g = len(sl)
-                    self.flops += flops_lib.packed_prefix_kv_flops(llm, g, size)
-                    self.flops += flops_lib.flat_query_suffix_flops(llm, g * qn, W, size)
-                    self.flops += flops_lib.tvg_head_flops(self.config, g * qn * W, V)
-                    return self._tvg_packed_step(first_ids, tvg_embeds, video_vocab, *arrs,
-                                                 cpn=cpn)
+                    def run_step(sl, arrs, size=size, qn=qn):
+                        g = len(sl)
+                        self.flops += flops_lib.packed_prefix_kv_flops(llm, g, size)
+                        self.flops += flops_lib.flat_query_suffix_flops(llm, g * qn, W, size)
+                        self.flops += flops_lib.tvg_head_flops(self.config, g * qn * W, V)
+                        return self._tvg_packed_step(first_ids, tvg_embeds, video_vocab, *arrs,
+                                                     cpn=cpn)
 
-                G = tvg_packs_per_step(size, qn, W)
-                for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
-                    pending.append((out_vec, [pair_pos[i] for i in sl_real], out))
+                    G = tvg_packs_per_step(size, qn, W)
+                    for sl_real, out in self._run_pack_batches(bulk, len(packs), G, run_step):
+                        pending.append((out_vec, [pair_pos[i] for i in sl_real], out))
 
-        scores = np.zeros(len(cap_idx), np.float32)
-        run_pass(scores, cap_idx, vid_idx, lens, None, False)
-        priors = None
-        if with_prior:
-            # The head tokens are the same for every caption, so a caption
-            # enters its prior only through the positions, which its prefix
-            # length sets: prior(c, v) == prior(len(c), v). Score one caption
-            # per (length, video): the first of np.unique(cap_idx) per length.
-            lenk = lens[cap_idx].astype(np.int64)
-            uk, prior_inv = np.unique(np.stack([lenk, vid_idx.astype(np.int64)], axis=1),
-                                      axis=0, return_inverse=True)
-            prior_inv = prior_inv.reshape(-1)
-            rep_for_len: Dict[int, int] = {}
-            for c in np.unique(cap_idx):
-                rep_for_len.setdefault(int(lens[c]), int(c))
-            p_cap = np.array([rep_for_len[int(L)] for L, _v in uk], np.int64)
-            p_vid = uk[:, 1]
-            priors = np.zeros(len(p_cap), np.float32)
-            run_pass(priors, p_cap, p_vid, np.full(len(lens), hl, np.int32), hl, True)
-        for vec, pos_lists, out in pending:
-            out = out.float().cpu().numpy()
-            for gi, pps in enumerate(pos_lists):
-                vec[pps] = out[gi, : len(pps)]
-        scores = self._allreduce_scores(scores)
-        if priors is None:
-            return scores, None
-        return scores, self._allreduce_scores(priors)[prior_inv]
+            scores = np.zeros(len(cap_idx), np.float32)
+            run_pass(scores, cap_idx, vid_idx, lens, None, False)
+            priors = None
+            if with_prior:
+                # The head tokens are the same for every caption, so a caption
+                # enters its prior only through the positions, which its prefix
+                # length sets: prior(c, v) == prior(len(c), v). Score one caption
+                # per (length, video): the first of np.unique(cap_idx) per length.
+                with span("rerank.pack"):
+                    lenk = lens[cap_idx].astype(np.int64)
+                    uk, prior_inv = np.unique(np.stack([lenk, vid_idx.astype(np.int64)], axis=1),
+                                              axis=0, return_inverse=True)
+                    prior_inv = prior_inv.reshape(-1)
+                    rep_for_len: Dict[int, int] = {}
+                    for c in np.unique(cap_idx):
+                        rep_for_len.setdefault(int(lens[c]), int(c))
+                    p_cap = np.array([rep_for_len[int(L)] for L, _v in uk], np.int64)
+                    p_vid = uk[:, 1]
+                priors = np.zeros(len(p_cap), np.float32)
+                run_pass(priors, p_cap, p_vid, np.full(len(lens), hl, np.int32), hl, True)
+            for vec, pos_lists, out in pending:
+                with span("rerank.readback"):
+                    out = self._readback(out)
+                for gi, pps in enumerate(pos_lists):
+                    vec[pps] = out[gi, : len(pps)]
+            scores = self._allreduce_scores(scores)
+            if priors is None:
+                return scores, None
+            return scores, self._allreduce_scores(priors)[prior_inv]
 
     # -- the rectangle schedule (packed=False) -----------------------------------
 
@@ -1046,7 +1089,7 @@ class RerankEngine:
                 for real, out in self._run_groups(sel, G_kb, run_step):
                     pending.append((g_pos[real], out))
         for pos, out in pending:
-            scores[pos] = out.float().cpu().numpy()[: len(pos)]
+            scores[pos] = self._readback(out)[: len(pos)]
         return self._allreduce_scores(scores)
 
     @torch.no_grad()
@@ -1070,7 +1113,7 @@ class RerankEngine:
             for real, out in self._run_groups(sel, B, run_step):
                 pending.append((real, out))
         for caps, out in pending:
-            prior[caps] = out.float().cpu().numpy()[: len(caps)]
+            prior[caps] = self._readback(out)[: len(caps)]
         return prior
 
     @torch.no_grad()
@@ -1116,9 +1159,9 @@ class RerankEngine:
                 for real, out in self._run_groups(sel, G_k, run_step):
                     pending.append((g_pos[real], out))
         for pos, (score, prior) in pending:
-            scores[pos] = score.float().cpu().numpy()[: len(pos)]
+            scores[pos] = self._readback(score)[: len(pos)]
             if with_prior:
-                priors[pos] = prior.float().cpu().numpy()[: len(pos)]
+                priors[pos] = self._readback(prior)[: len(pos)]
         scores = self._allreduce_scores(scores)
         return scores, None if priors is None else self._allreduce_scores(priors)
 
@@ -1204,7 +1247,7 @@ class RerankEngine:
                                 with_prior))
             self.flops += step_flops
             self.steps += 1
-        outs = [np.concatenate([o[i].float().cpu().numpy() for o in pending])[:n]
+        outs = [np.concatenate([self._readback(o[i]) for o in pending])[:n]
                 if pending else np.zeros(0, np.float32) for i in range(1 + with_prior)]
         return outs[0], outs[1] if with_prior else None
 

@@ -30,7 +30,8 @@ rank 0 prints and writes logs and checkpoints:
 
 --profile_dir DIR traces the evaluation with torch.profiler into
 DIR/trace.json (a Chrome trace; trace_rank<r>.json a rank in a group of
-several), as the JAX CLI traces it with jax.profiler. Left out:
+several), as the JAX CLI traces it with jax.profiler, with the program's
+tracer on, so the trace names the evaluation's spans. Left out:
 --mesh_model (tensor parallelism over a TPU mesh).
 """
 

@@ -4,9 +4,9 @@ An AST diff of the top-level names (functions, classes, assignments) and
 the public method names of every module of blim_tpu against the module at
 the same path in blim_tpu_torch (where a name the port imports into the
 module counts as present). What the JAX package has and the port lacks
-must be exactly the TPU-only list that ROADMAP.md's queue A names ("Left
-out by design"), so a new gap, or a listed name that is ported after all,
-fails here."""
+must be exactly the list that ROADMAP.md's queue A names ("Left out by
+design": the TPU-only names and three profiling helpers), so a new gap, or
+a listed name that is ported after all, fails here."""
 
 import ast
 from pathlib import Path
@@ -14,7 +14,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 MODULE = "<module>"     # the whole module is left out
 
-# ROADMAP.md, queue A, "Left out by design": TPU-only by design
+# ROADMAP.md, queue A, "Left out by design"
 TPU_ONLY = {
     "checkpoints/orbax_io.py": {MODULE, "load_checkpoint", "save_checkpoint"},
     "core/mesh.py": {MODULE, "DATA_AXIS", "MODEL_AXIS", "data_sharded", "local_mesh",
@@ -33,6 +33,10 @@ TPU_ONLY = {
     "models/qwen2.py": {"init_params"},
     "models/umt_vit.py": {"init_params"},
     "models/videochat_flash.py": {"init_params"},
+    # not TPU-only, left out all the same: the port's tracer `span` names
+    # profiler ranges where `annotate` did, and the port reads no scoped
+    # wall print or peak-memory helper
+    "utils/profiling.py": {"annotate", "device_memory_gb", "timed"},
 }
 
 
