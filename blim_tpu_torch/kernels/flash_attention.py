@@ -71,21 +71,29 @@ launches_bwd_dense_convert = 0  # its convert pass's launches
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+# counts()' keys -> the counters' names in this module
+_COUNTERS = {"flash_fwd": "launches", "flash_fwd_lse": "launches_lse",
+             "flash_fwd_dense": "launches_dense", "flash_fwd_dense_lse": "launches_dense_lse",
+             "flash_dq": "launches_dq", "flash_dkv": "launches_dkv",
+             "flash_bwd_dense": "launches_bwd_dense",
+             "flash_bwd_dense_prep": "launches_bwd_dense_prep",
+             "flash_bwd_dense_convert": "launches_bwd_dense_convert"}
+
+
 def reset_counts() -> None:
-    global launches, launches_lse, launches_dense, launches_dense_lse, launches_dq, launches_dkv
-    global launches_bwd_dense, launches_bwd_dense_prep, launches_bwd_dense_convert
-    launches = launches_lse = launches_dense = launches_dense_lse = 0
-    launches_dq = launches_dkv = 0
-    launches_bwd_dense = launches_bwd_dense_prep = launches_bwd_dense_convert = 0
+    for name in _COUNTERS.values():
+        globals()[name] = 0
 
 
 def counts() -> Dict[str, int]:
-    return {"flash_fwd": launches, "flash_fwd_lse": launches_lse,
-            "flash_fwd_dense": launches_dense, "flash_fwd_dense_lse": launches_dense_lse,
-            "flash_dq": launches_dq, "flash_dkv": launches_dkv,
-            "flash_bwd_dense": launches_bwd_dense,
-            "flash_bwd_dense_prep": launches_bwd_dense_prep,
-            "flash_bwd_dense_convert": launches_bwd_dense_convert}
+    return {key: globals()[name] for key, name in _COUNTERS.items()}
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add `delta` (keyed as counts()) to the counters: the launches of a
+    replayed CUDA graph (engine/step_graphs.py), which runs no Python."""
+    for key, n in delta.items():
+        globals()[_COUNTERS[key]] += n
 
 
 def _nvcc() -> str:

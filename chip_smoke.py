@@ -1074,6 +1074,7 @@ def tvg_controls(engine, inputs, tok, rows, cols, naive, naive_prior):
     import torch
 
     from blim_tpu_torch.core.numerics import einsum_f32
+    from blim_tpu_torch.engine import step_graphs
     from blim_tpu_torch.engine.rerank import CaptionBank
     from blim_tpu_torch.models import qwen2
     from blim_tpu_torch.models import videochat_flash as vcf
@@ -1102,10 +1103,12 @@ def tvg_controls(engine, inputs, tok, rows, cols, naive, naive_prior):
     out = {}
     for name, (module, attr, fn) in faults.items():
         setattr(module, attr, fn)
+        step_graphs.drop(engine.params)      # a step graph replays the code it captured
         try:
             s, p = engine.score_pairs_tvg_packed(banks, vocab, rows, cols, with_prior=True)
         finally:
             vcf.score_tvg_packed, qwen2.einsum_fp32 = score_tvg_packed, einsum_fp32
+            step_graphs.drop(engine.params)
         out[name] = (float(np.abs(s - naive).max()), float(np.abs(p - naive_prior).max()))
     return out
 
@@ -1272,6 +1275,7 @@ def vtg_grid_controls(flow, ft, naive):
     suffix scored one position late (likelihoods and priors)."""
     import torch
 
+    from blim_tpu_torch.engine import step_graphs
     from blim_tpu_torch.models import qwen2
     from blim_tpu_torch.models import videochat_flash as vcf
 
@@ -1287,10 +1291,12 @@ def vtg_grid_controls(flow, ft, naive):
     for name, (module, attr, fn) in {"segment": (qwen2, "forward_packed_suffix", one_segment),
                                      "position": (vcf, "score_vtg_packed", late_position)}.items():
         setattr(module, attr, fn)
+        step_graphs.drop(flow[1])            # a step graph replays the code it captured
         try:
             _, _, t2v, v2t, _ = run_flow(flow, NAIVE_ITEMS, finetuned=ft)
         finally:
             qwen2.forward_packed_suffix, vcf.score_vtg_packed = forward, score
+            step_graphs.drop(flow[1])
         gaps, _, mean = matrix_gaps(naive, {"t2v": t2v, "v2t": v2t}, VTG_MATRICES)
         out[name] = (max(gaps.values()), mean)
     return out

@@ -11,18 +11,21 @@ process (its result line is printed as usual) with every `evaluation` call
 wrapped: the tracer on in each call (`--tracer on`), or on and off in turns
 on, off, off, on, ... across the window's calls (`--tracer ab`, to price
 the tracer), always on in the warm-up and in the profiled call. Per call it
-keeps the spans, `host_syncs`, `steps`, the VTG pass wall from the
-`timings` marks, and the window's own wall of the call. Under `--trace 1`
-the profiled call's idle gaps are named twice, by the harness's spans
-alone (as the benchmark does) and with the program's spans beside them
-(the innermost span around a gap names it). The warm-up call runs once more
+keeps the spans, `host_syncs`, `steps`, the step graphs' `graph_captures`
+and `graph_replays`, the VTG pass wall from the `timings` marks, and the
+window's own wall of the call. Under `--trace 1` the profiled call's idle
+gaps are named twice, by the harness's spans alone (as the benchmark does)
+and with the program's spans beside them (the innermost span around a gap
+names it). The warm-up call runs once more
 under `torch.cuda.set_sync_debug_mode("warn")`: the device syncs it warns
 of, beside its `host_syncs`.
 
-Then one JSON line: per traced window call and their mean, each span's
-self time in ms a query, `host_syncs` a query, the share of the call's
-wall that the `evaluation.*` and `rerank.*` spans' self times cover and
-the root's own; with `ab`, the VTG pass ms a query with the tracer on and
+Then one JSON line: per window call (and for the warm-up, the cold call)
+the graph captures, replays, replay share (replays / steps) and
+`rerank.capture` self time; per traced window call and their mean, each
+span's self time in ms a query, `host_syncs` a query, the share of the
+call's wall that the `evaluation.*` and `rerank.*` spans' self times cover
+and the root's own; with `ab`, the VTG pass ms a query with the tracer on and
 off; with `--trace 1`, both idle-gap tables. With --out, the same line goes
 to DIR/rerank_spans_<W>.json. Needs the CUDA cards the cell names.
 """
@@ -83,8 +86,9 @@ def instrument(rec: Recorder) -> None:
             out = real_eval(engine, *args, **kwargs)
         wall = time.perf_counter() - t0
         call = {"kind": kind, "traced": traced, "wall_s": wall, "host_syncs": engine.host_syncs,
-                "steps": engine.steps, "timings": dict(kwargs.get("timings") or {}),
-                "spans": tracer.drain()}
+                "steps": engine.steps, "graph_captures": engine.graph_captures,
+                "graph_replays": engine.graph_replays,
+                "timings": dict(kwargs.get("timings") or {}), "spans": tracer.drain()}
         rec.calls.append(call)
         if warm and engine.device.type == "cuda":
             # once more with every device sync warned of
@@ -130,6 +134,18 @@ def instrument(rec: Recorder) -> None:
     trace_lib.reduce = reduce
 
 
+def graphs_of(call) -> dict:
+    """A call's step graphs: captures, replays, the replay share of its
+    steps, and the `rerank.capture` self time (ms, traced calls only)."""
+    from blim_tpu_torch.utils import profiling
+
+    out = {k: call[k] for k in ("graph_captures", "graph_replays")}
+    out["replay_share"] = call["graph_replays"] / call["steps"] if call["steps"] else None
+    if call["traced"]:
+        out["capture_ms"] = profiling.self_times(call["spans"]).get("rerank.capture", 0) / 1e6
+    return out
+
+
 def summarize(rec: Recorder, queries: int) -> dict:
     from blim_tpu_torch.utils import profiling
 
@@ -137,7 +153,7 @@ def summarize(rec: Recorder, queries: int) -> dict:
     per_call = []
     for c, (start, end) in zip(window, rec.window):
         row = {"traced": c["traced"], "wall_s": end - start, "host_syncs": c["host_syncs"],
-               "steps": c["steps"],
+               "steps": c["steps"], **graphs_of(c),
                "vtg_pass_ms_per_query": 1e3 * _vtg_pass_s(c["timings"]) / queries}
         if c["traced"]:
             self_ns = profiling.self_times(c["spans"])
@@ -165,6 +181,8 @@ def summarize(rec: Recorder, queries: int) -> dict:
             vals = [r["vtg_pass_ms_per_query"] for r in per_call if r["traced"] == flag]
             out[f"vtg_pass_ms_per_query_tracer_{'on' if flag else 'off'}"] = vals
     warm = next((c for c in rec.calls if c["kind"] == "warm"), None)
+    if warm is not None:
+        out["warm_graphs"] = graphs_of(warm)
     if warm is not None and "sync_debug" in warm:
         out["warm_sync_debug"] = warm["sync_debug"]
     if rec.gaps:
