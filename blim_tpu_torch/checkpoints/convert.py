@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from blim_tpu_torch.checkpoints import safetensors_io
-from blim_tpu_torch.core.config import ModelConfig, Qwen2Config, VisionConfig
+from blim_tpu_torch.core.config import ModelConfig, Qwen2Config, VisionConfig, moe_of
 from blim_tpu_torch.core.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -105,7 +105,9 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.T
 
 def init_qwen2(config: Qwen2Config, gen: torch.Generator, dtype, device) -> Params:
     """Stacked-layer Qwen2 tree: N(0, 0.02) dense weights, zero biases, unit
-    norm scales (qwen2.init_params)."""
+    norm scales (qwen2.init_params). A mixture-of-experts config gets the
+    `moe` tree of models/moe.py in place of the dense MLP: the router (fp32),
+    the routed and the shared experts, all N(0, 0.02)."""
     c = config
     L, D, I = c.num_hidden_layers, c.hidden_size, c.intermediate_size
     H, K, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
@@ -125,12 +127,21 @@ def init_qwen2(config: Qwen2Config, gen: torch.Generator, dtype, device) -> Para
             "k_proj": {"kernel": dense(L, D, K * hd), "bias": full(0.0, L, K * hd)},
             "v_proj": {"kernel": dense(L, D, K * hd), "bias": full(0.0, L, K * hd)},
             "o_proj": {"kernel": dense(L, H * hd, D)},
-            "gate_proj": {"kernel": dense(L, D, I)},
-            "up_proj": {"kernel": dense(L, D, I)},
-            "down_proj": {"kernel": dense(L, I, D)},
         },
         "norm": {"scale": full(1.0, D)},
     }
+    m = moe_of(c)
+    if m is None:
+        params["layers"].update(gate_proj={"kernel": dense(L, D, I)},
+                                up_proj={"kernel": dense(L, D, I)},
+                                down_proj={"kernel": dense(L, I, D)})
+    else:
+        E, Ie, S = m.routed, m.routed_size, m.shared * m.shared_size
+        params["layers"]["moe"] = {
+            "router": {"kernel": _normal(gen, (L, D, m.experts), 0.02, torch.float32, device)},
+            "experts": {"gate_up": dense(L, E, D, 2 * Ie), "down": dense(L, E, Ie, D)},
+            "shared": {"gate_up": dense(L, D, 2 * S), "down": dense(L, S, D)},
+        }
     params["lm_head"] = {"kernel": None if c.tie_word_embeddings else dense(D, c.vocab_size)}
     return params
 

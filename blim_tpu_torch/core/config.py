@@ -1,13 +1,18 @@
-"""Model configuration dataclasses (copy of blim_tpu/core/config.py).
+"""Model configuration dataclasses (copy of blim_tpu/core/config.py, plus
+the mixture-of-experts language model, which the JAX package lacks).
 
 Defaults are the VideoChat-Flash-Qwen2-7B values. `from_hf_config_dict`
 ingests a VideoChat-Flash checkpoint's `config.json`, so a checkpoint
-directory carries its own configuration.
+directory carries its own configuration. A `config.json` with Uni-MoE-2.0's
+dynamic-capacity keys (`mlp_dynamic_expert_num` ...) gives a
+`Qwen2MoEConfig`: the same decoder with each dense MLP replaced by the
+mixture of experts of `models/moe.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -36,6 +41,66 @@ class Qwen2Config:
     @property
     def num_query_groups(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Uni-MoE-2.0's dynamic-capacity mixture of experts (models/moe.py):
+    `routed` SwiGLU experts of width `routed_size` and `null` experts that
+    output zero, chosen per token by top-P over an fp32 router with at most
+    `top_k` experts; `shared` SwiGLU experts of width `shared_size` always
+    on."""
+
+    routed: int = 4              # mlp_dynamic_expert_num
+    null: int = 1                # mlp_dynamic_null_expert_num
+    shared: int = 2              # mlp_fixed_expert_num
+    routed_size: int = 18944     # dynamic_intermediate_size
+    shared_size: int = 2368      # shared_intermediate_size
+    top_p: float = 0.7           # mlp_dynamic_top_p
+    top_k: int = 2               # mlp_dynamic_top_k
+
+    @property
+    def experts(self) -> int:
+        """The router's outputs: the routed experts, then the null ones."""
+        return self.routed + self.null
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2MoEConfig(Qwen2Config):
+    """A Qwen2 decoder whose MLPs are mixtures of experts (`moe`);
+    `intermediate_size` is unused."""
+
+    moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
+
+
+def moe_of(config: Qwen2Config) -> Optional[MoEConfig]:
+    """The config's mixture of experts, or None for a dense decoder."""
+    return getattr(config, "moe", None)
+
+
+def _moe_from_hf(d: Dict[str, Any]) -> Optional[MoEConfig]:
+    """The mixture-of-experts keys of a Uni-MoE-2.0 config.json, or None.
+    The capacity keys (`capacity_factor`, `min_capacity`, `drop_policy`)
+    drop tokens only in training; with `token_drop` set they would drop
+    them at inference too, which this decoder does not do: refused. So is
+    a router out of fp32 (`fp32_gate` false): this decoder routes in fp32."""
+    if "mlp_dynamic_expert_num" not in d:
+        return None
+    if not d.get("fp32_gate", True):
+        raise ValueError("fp32_gate is false: the router here runs in float32 only")
+    if d.get("token_drop"):
+        raise ValueError("token_drop is set: capacity-limited routing (capacity_factor "
+                         f"{d.get('capacity_factor')}, min_capacity {d.get('min_capacity')}) "
+                         "drops tokens, and inference here routes every token")
+    return MoEConfig(
+        routed=int(d["mlp_dynamic_expert_num"]),
+        null=int(d.get("mlp_dynamic_null_expert_num", 0)),
+        shared=int(d.get("mlp_fixed_expert_num", 0)),
+        routed_size=int(d.get("dynamic_intermediate_size", d.get("intermediate_size", 18944))),
+        shared_size=int(d.get("shared_intermediate_size", 0)),
+        top_p=float(d.get("mlp_dynamic_top_p", 0.7)),
+        top_k=int(d.get("mlp_dynamic_top_k", 2)),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +210,10 @@ def tiny_model_config(
 
 
 def from_hf_config_dict(d: Dict[str, Any]) -> ModelConfig:
-    """Build a ModelConfig from a HuggingFace VideoChat-Flash config.json dict."""
-    llm = Qwen2Config(
+    """Build a ModelConfig from a HuggingFace VideoChat-Flash config.json dict
+    (a Uni-MoE-2.0 one gives a mixture-of-experts decoder)."""
+    moe = _moe_from_hf(d)
+    llm = (Qwen2Config if moe is None else functools.partial(Qwen2MoEConfig, moe=moe))(
         vocab_size=d.get("vocab_size", 152064),
         hidden_size=d.get("hidden_size", 3584),
         intermediate_size=d.get("intermediate_size", 18944),

@@ -46,6 +46,25 @@ JAX package's formulas on its step geometry at one data shard. In a
 process group `flops` counts this rank's steps and `useful_flops` the
 whole request, as in the JAX package.
 
+Mixture of experts (a `Qwen2MoEConfig`, models/moe.py): routing depends on
+the data, so the shape formulas count the decoder with its shared experts
+as the MLP (`flops.dense_view`), and the router and routed experts are
+counted from routed rows. In the packed passes each step's forward also
+returns, computed on the device from the MoE layers' routing log, its
+routed rows per pack, part (prefix, suffix), kind (real, other), layer and
+expert, and its decisions; at a pass's end one readback of the pass's row
+counts adds the routed work to `flops` (every row) and `useful_flops` (the
+rows of real tokens: the real suffix tokens of real packs, each video's
+prefix once, the prior prefix once), and to `moe_rows` / `moe_tokens`
+(real) and `moe_rows_other` / `moe_tokens_other` (padding, the tail's
+repeated packs, a video's repeated prefixes). The engine keeps every
+packed step's decisions with its packs' rows and captions in
+`routing_log` (and the prior prefix's in `routing_prior_prefix`), for a
+check against a reference; `close()` drops them. The rectangle and
+naive schedules collect the decisions eagerly and count every routed row
+as useful. In a process group the routed part of `useful_flops` is this
+rank's.
+
 Step graphs (engine/step_graphs.py): on CUDA every packed step is a CUDA
 graph, captured the first time its shape (pass, pack size, query bucket,
 packs) is seen and replayed after that, kept with the weights across
@@ -78,16 +97,18 @@ the JAX package's at one data shard.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from blim_tpu_torch.core.config import ModelConfig
+from blim_tpu_torch.core.config import ModelConfig, moe_of
 from blim_tpu_torch.core.constants import IGNORE_INDEX
 from blim_tpu_torch.core.device import DeviceLike, resolve_device
 from blim_tpu_torch.data.prompts import TVGLayout, VTGLayout
 from blim_tpu_torch.engine import step_graphs
+from blim_tpu_torch.models import moe
 from blim_tpu_torch.models import projector as projector_lib
 from blim_tpu_torch.models import videochat_flash as vcf
 from blim_tpu_torch.utils import distributed as dist
@@ -399,6 +420,29 @@ def topk_pairs(sims: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
     return rows, cols.reshape(-1)
 
 
+def _routing_counted(method):
+    """A rectangle or naive pass of a mixture-of-experts engine: its
+    routing decisions collected eagerly, and at the pass's end every routed
+    row counted, as dispatched and as useful work."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.moe is None:
+            return method(self, *args, **kwargs)
+        with moe.collect() as log:
+            out = method(self, *args, **kwargs)
+        if log:
+            L = self.config.llm.num_hidden_layers
+            rows = torch.stack([self._row_counts(d.view(1, 1, -1, d.shape[-1]), None)[0, 0, 0]
+                                for d in log])
+            rows = rows.view(-1, L, rows.shape[-1]).sum(0)
+            counts = torch.zeros((1, 2, 2) + rows.shape, dtype=rows.dtype, device=rows.device)
+            counts[0, 1, 0] = rows
+            self._pass_counts.append((counts, np.ones((1, 2), bool)))
+        self._close_routing()
+        return out
+    return run
+
+
 class RerankEngine:
     """Scores (caption, video) pairs with the VTG likelihood and CPN prior
     and, given a TVG layout, the TVG likelihood and CPN prior."""
@@ -446,6 +490,24 @@ class RerankEngine:
         # packing efficiency
         self.flops = 0.0
         self.useful_flops = 0.0
+        # the decoder as the shape formulas count it; a mixture of experts
+        # adds its routed work from the rows its routing log counts
+        self.flops_llm = flops_lib.dense_view(config.llm)
+        self.moe = moe_of(config.llm)
+        L, X = config.llm.num_hidden_layers, (self.moe.experts if self.moe else 0)
+        # routed (token, expert) rows per layer and expert (null experts
+        # last) and tokens per layer: of real tokens, and of the others
+        self.moe_rows = np.zeros((L, X), np.int64)
+        self.moe_tokens = np.zeros(L, np.int64)
+        self.moe_rows_other = np.zeros((L, X), np.int64)
+        self.moe_tokens_other = np.zeros(L, np.int64)
+        # a mixture of experts' decisions: per packed step its pass, real
+        # packs' rows and captions and prefix / suffix decisions (L, g, n, K)
+        self.routing_log: list = []
+        self.routing_prior_prefix: Optional[torch.Tensor] = None
+        # the running pass's (step row counts, per-pack usefulness flags)
+        self._pass_counts: list = []
+        self._pass_videos: set = set()
         self.batch_size = batch_size
         # the rectangle schedule: prefix groups a step before the per-bucket
         # scaling, captions a prior step; a group runs at the smallest suffix
@@ -482,7 +544,8 @@ class RerankEngine:
 
     def close(self) -> None:
         """Release what the engine holds on the device now: the params and
-        LoRA references and the memoized prior-prefix K/V (the banks are
+        LoRA references, the memoized prior-prefix K/V and a mixture of
+        experts' routing log (the banks are
         the caller's: upload returns them and the engine keeps none), then
         the allocator's cached blocks on CUDA. For callers that keep the
         engine referenced and want the memory back at once. Idempotent; a
@@ -490,7 +553,7 @@ class RerankEngine:
         step graphs of its weights go too."""
         if "params" in self.__dict__:
             step_graphs.drop(self.params)
-        for name in ("params", "lora", "_prior_kv_cache"):
+        for name in ("params", "lora", "_prior_kv_cache", "routing_log", "routing_prior_prefix"):
             self.__dict__.pop(name, None)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -498,7 +561,7 @@ class RerankEngine:
     # -- useful-work oracles (from the request, whatever the schedule) ---------
 
     def _useful_vtg(self, banks, cap_idx: np.ndarray, vid_idx: np.ndarray) -> float:
-        llm = self.config.llm
+        llm = self.flops_llm
         P_len = self.vtg_layout.prefix_len
         lens = banks["suffix_len_host"][cap_idx]
         n_vid = len(np.unique(vid_idx))
@@ -506,7 +569,7 @@ class RerankEngine:
             flops_lib.suffix_forward_flops_varlen(llm, lens, P_len)
 
     def _useful_vtg_prior(self, banks) -> float:
-        llm = self.config.llm
+        llm = self.flops_llm
         ids, _ = self.vtg_layout.prior_prefix()
         lens = banks["suffix_len_host"]
         return flops_lib.prefix_forward_flops(llm, 1, len(ids)) + \
@@ -514,7 +577,7 @@ class RerankEngine:
 
     def _useful_tvg(self, banks, cap_idx, vid_idx, vocab_videos: int,
                     with_prior: bool) -> float:
-        llm = self.config.llm
+        llm = self.flops_llm
         W = self.config.num_clips
         lens = banks["prefix_len_host"]
         u_caps = np.unique(cap_idx)
@@ -633,12 +696,98 @@ class RerankEngine:
         if self._prior_kv_cache is None:
             ids, pos = layout.prior_prefix()
             mask = self._tensor(np.ones((1, len(ids)), np.int32))
-            kv = vcf.vtg_text_prefix_kv(
-                self.params, self.config, self._tensor(ids)[None], self._tensor(pos)[None],
-                mask, lora=self.lora, lora_scale=self.lora_scale)
+            with moe.collect() as log:
+                kv = vcf.vtg_text_prefix_kv(
+                    self.params, self.config, self._tensor(ids)[None], self._tensor(pos)[None],
+                    mask, lora=self.lora, lora_scale=self.lora_scale)
             self.prefix_forwards += 1
+            if self.moe is not None:
+                dec = torch.stack(log)[:, None]
+                rows = self._row_counts(dec, None)
+                self._pass_counts.append((torch.stack([rows, torch.zeros_like(rows)], 1),
+                                          np.ones((1, 2), bool)))
+                self.routing_prior_prefix = dec[:, 0]
             self._prior_kv_cache = (kv, mask)
         return self._prior_kv_cache
+
+    # -- mixture-of-experts routing ------------------------------------------------
+
+    def _row_counts(self, dec: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """Decisions (L, g, n, K) -> int32 (g, 2, L, X + 1): per pack the
+        routed rows of each layer and expert (X with the null ones) and, last,
+        the tokens, of the real tokens (`valid` (g, n); None: all) and of the
+        others."""
+        X = self.moe.experts
+        hot = (dec.long()[..., None] == torch.arange(X, device=dec.device)).sum(3)
+        per_token = torch.cat([hot, torch.ones_like(hot[..., :1])], -1).to(torch.int32)
+        every = per_token.sum(2)
+        real = every if valid is None else (per_token * valid[None, :, :, None]).sum(2)
+        return torch.stack([real, every - real]).permute(2, 0, 1, 3)
+
+    def _routed(self, forward: Callable, kind: str) -> Callable:
+        """A packed step's forward for a mixture of experts -> (scores, row
+        counts (g, part: prefix | suffix, 2, L, X + 1), prefix decisions
+        (L, g, P, K) or an empty tensor, suffix decisions (L, g, n, K)), all
+        computed on the device from the MoE layers' routing log."""
+        L = self.config.llm.num_hidden_layers
+
+        def run(arrs):
+            with moe.collect() as log:
+                out = forward(arrs)
+            g = arrs[0].shape[0]
+            parts = [torch.stack([d.view(g, -1, d.shape[-1]) for d in log[i: i + L]])
+                     for i in range(0, len(log), L)]
+            pre, suf = (None, parts[0]) if kind == "vtg_prior" else parts
+            if kind.startswith("vtg"):
+                valid_pre, valid_suf = None, arrs[-3] >= 0
+            else:   # (pack ids, seg, pos, q_seg, q_cap, q_vid): a query's W tokens
+                valid_pre = arrs[1] >= 0
+                valid_suf = (arrs[3] >= 0).repeat_interleave(suf.shape[2] // arrs[3].shape[1], 1)
+            counts_suf = self._row_counts(suf, valid_suf)
+            counts_pre = (torch.zeros_like(counts_suf) if pre is None
+                          else self._row_counts(pre, valid_pre))
+            return (out, torch.stack([counts_pre, counts_suf], 1),
+                    suf.new_zeros(0) if pre is None else pre, suf)
+        return run
+
+    def _note_routing(self, key: Tuple, rows, sl: np.ndarray, n_real: int, counts, pre, suf,
+                      captions) -> None:
+        """A packed step's row counts for the pass's end, with which of its
+        packs' prefix and suffix rows are useful (real packs; a video's
+        prefix once a pass), and its decisions in the routing log."""
+        g = counts.shape[0]
+        real = np.arange(g) < n_real
+        first = real.copy()
+        if key[0] == "vtg":
+            for i in range(n_real):
+                v = int(rows[0][i])
+                first[i] = v not in self._pass_videos
+                self._pass_videos.add(v)
+        self._pass_counts.append((counts, np.stack([first, real], 1)))
+        self.routing_log.append({
+            "pass": key[0], "rows": [a[:n_real] for a in rows],
+            "captions": None if captions is None else [captions[i] for i in sl[:n_real]],
+            "prefix": pre[:, :n_real] if pre.numel() else None, "suffix": suf[:, :n_real]})
+
+    def _close_routing(self) -> None:
+        """At a pass's end (after its last readback): its step row counts
+        read back at once and added to flops, useful_flops and the routed
+        row counters."""
+        if not self._pass_counts:
+            return
+        self.host_syncs += 1
+        counts = torch.cat([c for c, _ in self._pass_counts]).cpu().numpy().astype(np.int64)
+        flags = np.concatenate([f for _, f in self._pass_counts])
+        self._pass_counts, self._pass_videos = [], set()
+        every = counts.sum(axis=(0, 1, 2))
+        useful = (counts[:, :, 0] * flags[:, :, None, None]).sum(axis=(0, 1))
+        R, llm = self.moe.routed, self.config.llm
+        self.flops += flops_lib.routed_flops(llm, every[:, :R].sum(), every[:, -1].sum())
+        self.useful_flops += flops_lib.routed_flops(llm, useful[:, :R].sum(), useful[:, -1].sum())
+        self.moe_rows += useful[:, :-1]
+        self.moe_tokens += useful[:, -1]
+        self.moe_rows_other += (every - useful)[:, :-1]
+        self.moe_tokens_other += (every - useful)[:, -1]
 
     # -- steps -------------------------------------------------------------------
 
@@ -871,14 +1020,18 @@ class RerankEngine:
         return ids, seg, pos, q_seg, q_cap, q_vid, pair_pos
 
     def _run_pack_batches(self, bulk, m: int, G: int, count: Callable, forward: Callable,
-                          graphs: Optional[step_graphs.StepGraphs], key: Tuple):
+                          graphs: Optional[step_graphs.StepGraphs], key: Tuple, captions=None):
         """Split m assembled pack rows (`bulk`, arrays with a leading m axis)
         into batch_plan batches (the tail padded by repeating pack 0, whose
         duplicate scatter is idempotent), copy each batch's rows to the
         device and run forward(tensors) on them, count(g) adding a step of
         g packs' FLOPs. With step graphs the rows go into the static inputs
         of step (*key, g), whose graph replays. Yields (real pack indices,
-        step output)."""
+        step output). For a mixture of experts the step also returns its
+        routing (`_routed`), noted with `captions[i]` (pack i's) for
+        the routing log."""
+        if self.moe is not None:
+            forward = self._routed(forward, key[0])
         s = 0
         for g in batch_plan(m, G):
             n_real = min(g, m - s)
@@ -899,6 +1052,9 @@ class RerankEngine:
                     count(g)
                     out = graphs.run(self, st, forward)
             self.steps += 1
+            if self.moe is not None:
+                out, counts, pre, suf = out
+                self._note_routing(key, rows, sl, n_real, counts, pre, suf, captions)
             yield sl[:n_real], out
             s += n_real
 
@@ -931,7 +1087,7 @@ class RerankEngine:
                 graphs, feats=banks["feats"], vtg_prefix_ids=prefix_ids,
                 vtg_prefix_mask=prefix_mask)
             P_len = int(prefix_ids.shape[0])
-            llm = self.config.llm
+            llm = self.flops_llm
             scores = np.zeros(len(cap_idx), np.float32)
             pending = []
             with span("rerank.pack"):
@@ -955,8 +1111,9 @@ class RerankEngine:
                 with span("rerank.pack"):
                     vids = np.asarray([key for key, _, _ in packs], np.int64)
                     bulk = (vids, *self._assemble_packs_bulk(banks, packs, size))
-                for sl_real, out in self._run_pack_batches(bulk, len(packs), G, count, forward,
-                                                           graphs, ("vtg", size, None)):
+                for sl_real, out in self._run_pack_batches(
+                        bulk, len(packs), G, count, forward, graphs, ("vtg", size, None),
+                        captions=[caps for _, caps, _ in packs]):
                     pending.append(([packs[i][2] for i in sl_real], out))
             for mapping, out in pending:
                 with span("rerank.readback"):
@@ -964,6 +1121,7 @@ class RerankEngine:
                 for gi, pos_list in enumerate(mapping):
                     for si, pp in enumerate(pos_list):
                         scores[pp] = out[gi, si]
+            self._close_routing()
             return self._allreduce_scores(scores)
 
     @torch.no_grad()
@@ -977,7 +1135,7 @@ class RerankEngine:
                 graphs, prior_k=prior_kv["k"], prior_v=prior_kv["v"], prior_mask=prior_mask)
             prior_kv = {"k": prior_k, "v": prior_v}
             P_prior = int(prior_mask.shape[1])
-            self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
+            self.flops += flops_lib.prefix_forward_flops(self.flops_llm, 1, P_prior)
             n_caps = banks["n_captions"]
             prior = np.zeros(n_caps, np.float32)
             pending = []
@@ -988,7 +1146,7 @@ class RerankEngine:
 
                 def count(g, size=size):
                     self.flops += flops_lib.packed_suffix_forward_flops(
-                        self.config.llm, g, size, P_prior)
+                        self.flops_llm, g, size, P_prior)
 
                 def forward(arrs, size=size):
                     return self._vtg_prior_packed_step(prior_kv, prior_mask, *arrs,
@@ -997,8 +1155,9 @@ class RerankEngine:
                 G = packs_per_step(P_prior, size)
                 with span("rerank.pack"):
                     bulk = self._assemble_packs_bulk(banks, packs, size)
-                for sl_real, out in self._run_pack_batches(bulk, len(packs), G, count, forward,
-                                                           graphs, ("vtg_prior", size, None)):
+                for sl_real, out in self._run_pack_batches(
+                        bulk, len(packs), G, count, forward, graphs, ("vtg_prior", size, None),
+                        captions=[caps for _, caps, _ in packs]):
                     pending.append(([packs[i][1] for i in sl_real], out))
             for mapping, out in pending:
                 with span("rerank.readback"):
@@ -1006,6 +1165,7 @@ class RerankEngine:
                 for gi, caps in enumerate(mapping):
                     for si, c in enumerate(caps):
                         prior[c] = out[gi, si]
+            self._close_routing()
             return prior
 
     @torch.no_grad()
@@ -1023,7 +1183,7 @@ class RerankEngine:
             assert "tvg_embeds" in banks, "upload() computes tvg_embeds for TVG banks"
             assert banks.get("lora_ref_host") is self.lora, (
                 "engine.lora changed since upload(): tvg_embeds is stale, re-upload")
-            llm = self.config.llm
+            llm = self.flops_llm
             V = int(video_vocab.shape[0])
             W = self.config.num_clips
             hl = self.tvg_layout.tvg_prefix_length
@@ -1088,6 +1248,7 @@ class RerankEngine:
                     out = self._readback(out)
                 for gi, pps in enumerate(pos_lists):
                     vec[pps] = out[gi, : len(pps)]
+            self._close_routing()
             scores = self._allreduce_scores(scores)
             if priors is None:
                 return scores, None
@@ -1118,6 +1279,7 @@ class RerankEngine:
             self.steps += 1
             yield sl[: min(G, m - s)], out
 
+    @_routing_counted
     @torch.no_grad()
     def score_pairs_vtg_shared(self, banks: Dict[str, Any], cap_idx: np.ndarray,
                                vid_idx: np.ndarray, topk: int,
@@ -1130,7 +1292,7 @@ class RerankEngine:
         G = groups_per_step or self.groups_per_step
         prefix_ids, prefix_mask = self._vtg_prefix_arrays()
         P_len = int(prefix_ids.shape[0])
-        llm = self.config.llm
+        llm = self.flops_llm
         lens = banks["suffix_len_host"]
         scores = np.zeros(len(cap_idx), np.float32)
         pending = []
@@ -1157,6 +1319,7 @@ class RerankEngine:
             scores[pos] = self._readback(out)[: len(pos)]
         return self._allreduce_scores(scores)
 
+    @_routing_counted
     @torch.no_grad()
     def compute_vtg_priors(self, banks: Dict[str, Any]) -> np.ndarray:
         """CPN prior P(caption) of every caption in the bank, prior_batch
@@ -1165,14 +1328,14 @@ class RerankEngine:
         self.useful_flops += self._useful_vtg_prior(banks)
         prior_kv, prior_mask = self.compute_prior_kv(self.vtg_layout)
         P_prior = int(prior_mask.shape[1])
-        self.flops += flops_lib.prefix_forward_flops(self.config.llm, 1, P_prior)
+        self.flops += flops_lib.prefix_forward_flops(self.flops_llm, 1, P_prior)
         B = self.prior_batch
         prior = np.zeros(banks["n_captions"], np.float32)
         pending = []
         for b, sel in self._bucket_members(banks["suffix_len_host"], self.suffix_buckets):
             def run_step(sl, b=b):
                 self.flops += flops_lib.suffix_forward_flops(
-                    self.config.llm, B, b, P_prior, lm_positions=b - 1)
+                    self.flops_llm, B, b, P_prior, lm_positions=b - 1)
                 return self._vtg_prior_step(banks, prior_kv, prior_mask, self._tensor(sl), b)
 
             for real, out in self._run_groups(sel, B, run_step):
@@ -1181,6 +1344,7 @@ class RerankEngine:
             prior[caps] = self._readback(out)[: len(caps)]
         return prior
 
+    @_routing_counted
     @torch.no_grad()
     def score_pairs_tvg_shared(self, banks: Dict[str, Any], video_vocab: torch.Tensor,
                                cap_idx: np.ndarray, vid_idx: np.ndarray, topk: int,
@@ -1214,8 +1378,8 @@ class RerankEngine:
 
                 def run_step(sl, B=B, g_cap=g_cap, g_vid=g_vid, k=k, G_k=G_k):
                     self.flops += (2 if with_prior else 1) * (
-                        flops_lib.prefix_forward_flops(self.config.llm, G_k, B)
-                        + flops_lib.suffix_forward_flops(self.config.llm, G_k * k, Wt, B)
+                        flops_lib.prefix_forward_flops(self.flops_llm, G_k, B)
+                        + flops_lib.suffix_forward_flops(self.flops_llm, G_k * k, Wt, B)
                         + flops_lib.tvg_head_flops(self.config, G_k * k * self.config.num_clips,
                                                    V))
                     return self._tvg_shared_step(banks, video_vocab, self._tensor(g_cap[sl]),
@@ -1322,6 +1486,7 @@ class RerankEngine:
         mat[rows, cols] = values
         return mat
 
+    @_routing_counted
     @torch.no_grad()
     def score_grid_vtg(self, banks: Dict[str, Any], rows: np.ndarray, cols: np.ndarray,
                        cap_idx: np.ndarray, vid_idx: np.ndarray, out_shape: Tuple[int, int],
@@ -1335,13 +1500,14 @@ class RerankEngine:
             self.useful_flops += self._useful_vtg_prior(banks)
         T = int(banks["rows"]["input_ids"].shape[1])
         step_flops = (2 if with_prior else 1) * flops_lib.full_forward_flops(
-            self.config.llm, self.batch_size, T, lm_positions=self.vtg_layout.label_window[1])
+            self.flops_llm, self.batch_size, T, lm_positions=self.vtg_layout.label_window[1])
         scores, priors = self._run_pairs(
             lambda ci, vi, wp: self._vtg_naive_step(banks, ci, vi, wp), cap_idx, vid_idx,
             with_prior, step_flops)
         return (self._scatter(rows, cols, scores, out_shape, fill),
                 None if priors is None else self._scatter(rows, cols, priors, out_shape, fill))
 
+    @_routing_counted
     @torch.no_grad()
     def score_grid_tvg(self, banks: Dict[str, Any], video_vocab: torch.Tensor, rows: np.ndarray,
                        cols: np.ndarray, cap_idx: np.ndarray, vid_idx: np.ndarray,
@@ -1353,7 +1519,7 @@ class RerankEngine:
         self.useful_flops += self._useful_tvg(banks, cap_idx, vid_idx, V, with_prior)
         T = int(banks["rows"]["input_ids"].shape[1])
         step_flops = (2 if with_prior else 1) * (
-            flops_lib.full_forward_flops(self.config.llm, self.batch_size, T)
+            flops_lib.full_forward_flops(self.flops_llm, self.batch_size, T)
             + flops_lib.tvg_head_flops(self.config, self.batch_size * self.config.num_clips, V))
         scores, priors = self._run_pairs(
             lambda ci, vi, wp: self._tvg_naive_step(banks, video_vocab, ci, vi, wp), cap_idx,

@@ -33,11 +33,15 @@ a step moves in Python (the engine's prefix forwards, the flash-attention
 launch counters) are recorded at capture and added on every replay.
 
 A graph replays the code that ran when it was captured: code patched later
-(a planted fault) runs only after `drop(params)`.
+(a planted fault) runs only after `drop(params)`. Inside `eager()` the
+steps run eagerly on CUDA too, and the graphs kept stay as they are: a
+profiler then ties each kernel to the span that launched it, which it
+cannot do inside a replayed graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -52,6 +56,8 @@ ENGINE_COUNTERS = ("prefix_forwards", "tvg_prefix_forwards")
 
 # the embedding table -> its weights' StepGraphs
 _CACHES = WeakIdKeyDictionary()
+# open `eager()` scopes
+_eager = 0
 
 
 class CudaStepGraph:
@@ -115,9 +121,23 @@ def _key(params) -> torch.Tensor:
     return params["llm"]["embed_tokens"]["embedding"]
 
 
+@contextlib.contextmanager
+def eager():
+    """The packed steps run eagerly inside the scope, on CUDA too."""
+    global _eager
+    _eager += 1
+    try:
+        yield
+    finally:
+        _eager -= 1
+
+
 def for_engine(engine) -> Optional["StepGraphs"]:
     """The step graphs of the engine's weights (new, or anew where the
-    fingerprint changed), or None where its steps run eagerly."""
+    fingerprint changed), or None where its steps run eagerly (off CUDA,
+    or inside `eager()`)."""
+    if _eager:
+        return None
     key = _key(engine.params)
     graphs = _CACHES.pop(key, None)
     if graphs is None or graphs.fingerprint != fingerprint(engine):
@@ -176,10 +196,10 @@ class StepGraphs:
                 torch.empty_like(torch.from_numpy(a), device=self.device) for a in arrays))
         return st
 
-    def run(self, engine, st: Step, forward: Callable[[Tuple[torch.Tensor, ...]], torch.Tensor]
-            ) -> torch.Tensor:
+    def run(self, engine, st: Step, forward: Callable[[Tuple[torch.Tensor, ...]], Any]) -> Any:
         """Replay the step on its static inputs, capturing forward(inputs)
-        first if the key is new -> a copy of its output."""
+        first if the key is new -> a copy of its output (a tensor, or a
+        tuple of tensors)."""
         if st.graph is None:
             with span("rerank.capture"):
                 eng0, fa0 = {n: getattr(engine, n) for n in ENGINE_COUNTERS}, fa.counts()
@@ -195,4 +215,6 @@ class StepGraphs:
             fa.add_counts(st.kernel_counts)
             engine.graph_replays += 1
         st.graph.replay()
+        if isinstance(st.output, tuple):
+            return tuple(t.clone() for t in st.output)
         return st.output.clone()

@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from blim_tpu_torch.adapters import lora as lora_lib
-from blim_tpu_torch.core.config import ModelConfig
+from blim_tpu_torch.core.config import ModelConfig, moe_of
 from blim_tpu_torch.core.device import DeviceLike, resolve_device
 from blim_tpu_torch.data.prompts import TVGLayout, VTGLayout
 from blim_tpu_torch.models import videochat_flash as vcf
@@ -186,7 +186,12 @@ def make_train_step(config: ModelConfig, train_cfg: TrainConfig, vtg_layout: VTG
     averages the gradients over the ranks first. Metrics: loss, vtg_loss,
     tvg_loss (this rank's batch) and grad_norm (the global norm of this
     rank's micro-step gradients, before any averaging), as 0-d tensors on
-    the device."""
+    the device. A mixture-of-experts decoder has no train step: it raises
+    NotImplementedError."""
+    if moe_of(config.llm) is not None:
+        raise NotImplementedError(
+            f"no train step for a mixture-of-experts decoder ({type(config.llm).__name__}, "
+            f"{config.llm.moe})")
     dev = resolve_device(device)
     ws, wl = vtg_layout.label_window
     vtg_geom = (vtg_layout.video_start, ws, wl)

@@ -22,9 +22,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from blim_tpu_torch.adapters.lora import apply_dense
-from blim_tpu_torch.core.config import Qwen2Config
+from blim_tpu_torch.core.config import Qwen2Config, moe_of
 from blim_tpu_torch.core.numerics import einsum_f32, einsum_fp32, matmul_f32
 from blim_tpu_torch.kernels.attention import NEG_INF, multi_head_attention
+from blim_tpu_torch.models import moe
 
 Params = Dict[str, Any]
 
@@ -104,7 +105,12 @@ def _attn_out(c: Qwen2Config, lp: Params, hidden, attn, ll, lora_scale) -> torch
 
 
 def _mlp(c: Qwen2Config, lp: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP with its residual: the dense SwiGLU, or the mixture
+    of experts of a `Qwen2MoEConfig` (models/moe.py)."""
     x = rms_norm(hidden, lp["post_attention_layernorm"]["scale"], c.rms_norm_eps)
+    experts = moe_of(c)
+    if experts is not None:
+        return hidden + moe.moe_mlp(experts, lp["moe"], x)
     gate = F.silu(x @ lp["gate_proj"]["kernel"])
     up = x @ lp["up_proj"]["kernel"]
     return hidden + (gate * up) @ lp["down_proj"]["kernel"]

@@ -17,7 +17,8 @@ FLOPs model:
   * visual_head + video-vocab bmm (TVG): 2*h*mm + 2*mm*Vv per gathered clip.
 
 Only dispatched work counts: padding inside a step counts, skipped pairs do
-not. Everything from `decoder_matmul_flops_per_token` to the TPU peak table
+not. A mixture-of-experts decoder is counted through `dense_view` and
+`routed_flops`, after the copied formulas. Everything from `decoder_matmul_flops_per_token` to the TPU peak table
 is the original's text byte for byte (tests/test_torch_copies.py pins it);
 `peak_flops_per_chip` reads a torch device instead of a JAX one.
 """
@@ -26,7 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from blim_tpu_torch.core.config import ModelConfig, Qwen2Config
+import dataclasses
+
+from blim_tpu_torch.core.config import ModelConfig, Qwen2Config, moe_of
 
 
 def decoder_matmul_flops_per_token(cfg: Qwen2Config) -> float:
@@ -261,3 +264,24 @@ def peak_flops_per_chip(device) -> float | None:
 PEAK_BF16_FLOPS_CUDA = {
     "NVIDIA H100 80GB HBM3": 989e12,
 }
+
+
+def dense_view(cfg: Qwen2Config) -> Qwen2Config:
+    """The decoder as the shape formulas above count it. A mixture of
+    experts (models/moe.py) counts as a dense decoder whose MLP is its shared
+    experts side by side; its router and routed experts depend on the data
+    and are counted from routed rows (`routed_flops`)."""
+    m = moe_of(cfg)
+    if m is None:
+        return cfg
+    dense = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(Qwen2Config)}
+    return Qwen2Config(**dict(dense, intermediate_size=m.shared * m.shared_size))
+
+
+def routed_flops(cfg: Qwen2Config, rows: float, tokens: float) -> float:
+    """A mixture of experts' data-dependent work: `rows` (token, routed
+    expert) pairs, each three products of hidden x routed_size, and `tokens`
+    token-layers through the router (hidden x experts)."""
+    m = moe_of(cfg)
+    return (6.0 * cfg.hidden_size * m.routed_size * float(rows)
+            + 2.0 * cfg.hidden_size * m.experts * float(tokens))
